@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native 2D Gaussian splatting framework.
+"""Configuration for the 2D Gaussian splatting framework.
 
 Every named constant of the reference implementation is captured here as a
 single frozen dataclass (the reference hardcodes them as #defines / literals):
@@ -68,52 +68,36 @@ class SplatConfig:
     opacity_min: float = 0.1
     opacity_max: float = 1.0
 
-    # --- production rasterizer (net-new, TPU tile pipeline) ---------------
+    # --- production rasterizer (net-new, tile pipeline) -------------------
+    # Pixel tile shape. The GPU kernel runs one program per tile on
+    # tile_h * tile_w pixels, which must be a power of two; production
+    # entry points pick the shape with tiles.tune_tile_shape.
     tile_h: int = 8
     tile_w: int = 128
-    # Per-tile splat list capacity for the binned Pallas path; None picks a
+    # Per-tile splat list capacity of the dense layout; None picks a
     # heuristic from the workload at bin time.
     max_splats_per_tile: Optional[int] = None
-    # How many splats each inner kernel step processes (vector-friendly).
-    splat_chunk: int = 256
-    # Cap on tiles per splat in the binning expansion (bbox rows x cols).
-    # 32 covers splats up to ~120 px tall at tile_h=8; larger splats get a
-    # row-major-truncated bbox, counted in TileBinning.n_dropped.
+    # Cap on tiles per splat in the dense binning expansion (bbox rows x
+    # cols); larger splats get a row-major-truncated bbox, counted in
+    # TileBinning.n_dropped.
     max_tiles_per_splat: int = 32
     # Exact-ellipse tile culling in binning (net-new): drop (splat, tile)
     # pairs whose Mahalanobis ellipse provably cannot touch any pixel the
-    # kernels would walk on that tile (conservative ellipse-rect separation,
-    # tiles.tile_may_touch). The reference bins nothing (splat-major walk,
-    # main.cpp:489-509); the bbox binning the kernels started from keeps
-    # corner tiles a rotated ellipse never reaches. Culled pairs contribute
-    # exactly nothing (renders match to <= 1 ulp; removing list entries
-    # shifts unrolled-loop boundaries where XLA's excess-precision rounding
-    # may move, same as the documented across-tile_h drift).
+    # rasterizer would walk on that tile (conservative ellipse-rect
+    # separation, tiles.tile_may_touch). The reference bins nothing
+    # (splat-major walk, main.cpp:489-509). Culled pairs contribute exactly
+    # nothing.
     exact_cull: bool = True
-    # Cache the forward's masked Gaussian term per (slot, tile) in VMEM
-    # scratch so the fused kernels' backward replay skips the whole
-    # coverage re-derivation (bounds + ellipse quadratic + exp_approx,
-    # ~45 vector ops per pair-step). Mathematically identical: alpha =
-    # G * op is exactly how the forward built alpha, masked pairs carry
-    # G == 0, and every gradient contribution is proportional to alpha or
-    # G; the smaller expression tree fuses differently under XLA, so
-    # compiled gradients drift <= 1 ulp vs the re-deriving kernels (same
-    # class as the across-tile_h drift). Measured on v5e: 0.709 vs 0.875
-    # ms/iter on the production mini workload (scripts/ab_gcache.py).
-    # Applies to the non-chunked fused and resident kernels when the
-    # (K, tile_h, tile_w) f32 buffer fits render_pallas.GCACHE_BUDGET_BYTES;
-    # the chunked/flat kernels always re-derive (unbounded K).
-    alpha_cache: bool = True
     # Lazy rebinning (net-new): when > 0, the scan fitter bins with this
     # many pixels of footprint slack and reuses the binning across steps
     # until some splat's exact footprint escapes its slack
     # (tiles.pairs_covered_by -- an exact, conservative test). Superset
     # pairs contribute exactly nothing mathematically, so trajectories
     # match per-step rebinning (to <= 1 ulp/step of excess-precision
-    # slot-shift noise). 0 disables (bin every step). Both cache-capable
-    # layouts honor it: resident (ids-only) AND flat (margined superset
-    # pair rows, train/loop.py); -1 on the CLI auto-tunes the margin from
-    # measured pair inflation. dense/window always rebin.
+    # slot-shift noise). 0 disables (bin every step). The flat layout
+    # honors it (margined superset pair rows, train/loop.py); -1 on the CLI
+    # auto-tunes the margin from measured pair inflation. dense always
+    # rebins.
     rebin_margin: float = 0.0
     # Opacity-adaptive footprint culling (net-new): when > 0, a splat's
     # BINNED footprint shrinks from the geometric 3-sigma ellipse to the
@@ -135,28 +119,19 @@ class SplatConfig:
     # escape exactly). 1/256 matches the early-out constant.
     opacity_cull_alpha: float = 0.0
 
-    # --- binning layout (net-new; see ops/tiles.py vs ops/tiles_flat.py) --
-    # "dense": padded (n_tiles, K) lists + single fused kernel -- best at
-    #   small/medium N. "flat": block-aligned flat pair array + scalar-
-    #   prefetch kernels, O(actual pairs) gather/scatter -- best at large N.
-    # "resident": ids-only binning + whole-table-in-SMEM fused kernel with
-    #   in-kernel one-hot MXU gradient expansion (no pregather, no scatter)
-    #   -- small N only (see ops/render_pallas_resident.py).
-    # "window": resident with the gradient expansion restricted to a static
-    #   per-tile splat-axis window (ops/render_pallas_window.py) -- needs a
-    #   Morton-ordered population (train/reorder.py) and tuned
-    #   window_width; explicit opt-in until measured on hardware.
-    # "auto" picks by n_splats (see render_pallas_flat.resolve_binning).
+    # --- binning layout (net-new; gs2d_tpu/backend.py) ---------------------
+    # "flat": the flat pair list (ops/tiles_flat.py) walked by the
+    #   Pallas-Triton kernel (ops/render_gpu.py) -- GPU only.
+    # "dense": padded (n_tiles, K) lists (ops/tiles.py) and the plain XLA
+    #   scan (ops/render_tiles.py) -- any platform.
+    # "auto": flat on a GPU, dense elsewhere (backend.resolve_binning).
     binning: str = "auto"
-    # Splat-axis window width (elements, multiple of 128) for the "window"
-    # layout; None means untuned (render_pallas_window.tune_window fills
-    # it from measured per-tile id spans).
-    window_width: Optional[int] = None
-    # Flat-layout statics (set by tiles_flat.tune_flat_capacity / fit()):
-    # chunk rows per kernel block, total flat rows, per-tile chunk cap.
-    flat_chunk: int = 256
+    # Total pair rows of the flat layout (static; set by
+    # tiles_flat.tune_flat_config from measured counts).
     flat_capacity: Optional[int] = None
-    flat_max_chunks: Optional[int] = None
+    # Run the Triton kernel in Pallas interpret mode (tests on the CPU).
+    # Never chosen from the platform: the caller asks for it.
+    interpret: bool = False
     # Round the tile grid's row count up to a multiple of this. Tile-axis
     # sharding needs every device band to be whole tile rows, so
     # fit_sharded sets it to the tile-axis size when the image's natural

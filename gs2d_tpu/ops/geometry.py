@@ -87,5 +87,5 @@ def bbox_half_height(a_inv, det, bounds):
 
 def bbox_half_width(d_inv, det, bounds):
     """Horizontal half-extent, sqrt(inv_cov[1][1] * det) * bounds
-    (reference main.cpp:488, used for tile binning in the TPU pipeline)."""
+    (reference main.cpp:488, used for tile binning)."""
     return jnp.sqrt(d_inv * det) * jnp.float32(bounds)

@@ -1,12 +1,12 @@
 """Pure-JAX reference rasterizer: scan over splats, gather over pixels.
 
 This is the framework's *semantic reference path*: jit-able, differentiable,
-runs on CPU/TPU unchanged, and reproduces the reference C++ loop semantics
-(/root/reference/main.cpp:418-712) in vectorized form. The production path is
-the Pallas tile pipeline (pallas_forward/pallas_backward); both are tested
+runs on any backend unchanged, and reproduces the reference C++ loop
+semantics (main.cpp:418-712) in vectorized form. The production path is the
+tile pipeline (ops/render_tiles.py, ops/render_gpu.py); both are tested
 against the loop-faithful NumPy oracle.
 
-Design notes (TPU-first, not a port):
+Design notes (not a port):
 
 - The reference is splat-major *scatter* (each splat walks its own pixel
   footprint, main.cpp:419-537). Sequential splat order only matters through
@@ -184,7 +184,9 @@ def render_backward_band(
 
         # dL/dc_i = sum_px gC * alpha * T   (main.cpp:617-620)
         w_c = alpha * T * mw
-        g_col = jnp.einsum("hwc,hw->c", gC, w_c)
+        # HIGHEST keeps TF32 out of the reference on a GPU.
+        g_col = jnp.einsum("hwc,hw->c", gC, w_c,
+                           precision=jax.lax.Precision.HIGHEST)
 
         # replay composite to get suffix color S (main.cpp:622-627)
         C = C + jnp.where(live, T * alpha, 0.0)[..., None] * s["color"]
@@ -201,7 +203,8 @@ def render_backward_band(
             jnp.float32(1.0) - alpha,
         )
         dC_dalpha = s["color"][None, None, :] * T[..., None] - S / one_m_a[..., None]
-        dL_da = jnp.einsum("hwc,hwc->hw", gC, dC_dalpha) * mw
+        dL_da = jnp.einsum("hwc,hwc->hw", gC, dC_dalpha,
+                           precision=jax.lax.Precision.HIGHEST) * mw
 
         a, b, d = s["a"], s["b"], s["d"]
         vxg = vx[None, :]

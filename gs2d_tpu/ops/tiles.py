@@ -1,8 +1,8 @@
 """Tile binning: map each screen tile to its index-ordered splat list.
 
 The reference is splat-major scatter (each splat walks its own footprint,
-main.cpp:419-537). The TPU production path inverts this: the screen is cut
-into (tile_h x 128)-pixel tiles and each tile gathers the splats whose
+main.cpp:419-537). The production path inverts this: the screen is cut
+into (tile_h x tile_w)-pixel tiles and each tile gathers the splats whose
 conservative bounding box (Form.pdf section 12) intersects it, preserving
 splat *index order* (the compositing order contract, Form.pdf p2).
 
@@ -31,8 +31,8 @@ from gs2d_tpu.ops import geometry
 from gs2d_tpu.ops.numerics import trunc_to_int
 from gs2d_tpu.params import GaussianParams
 
-# Field order in the packed per-splat parameter matrix consumed by the Pallas
-# kernels. 16 fields so a (16, K) block lays out on clean sublanes.
+# Field order in the packed per-splat parameter rows consumed by the
+# rasterizers (16 fields: a power-of-two row).
 FIELD_PX = 0
 FIELD_PY = 1
 FIELD_A = 2      # inv_cov[0][0]
@@ -177,7 +177,7 @@ def tile_may_touch(px, py, a, b, d, tx, tyg, cfg: SplatConfig,
     """Conservative per-(splat, tile) test: can the splat's Mahalanobis
     ellipse reach any pixel the kernels would walk on tile (tyg, tx)?
 
-    The kernels (render_pallas._splat_terms; reference main.cpp:489-509)
+    The rasterizers (render_gpu.splat_terms; reference main.cpp:489-509)
     walk pixels whose row has real quadratic roots and whose column index
     lies in [trunc(px+r0), trunc(px+r1)] -- so every walked pixel center
     (x+0.5, y+0.5) has, in v = center - pos coordinates, vy inside the
@@ -290,7 +290,6 @@ def bin_splats(
     band_row0=0,
     band_rows: int | None = None,
     counts_only: bool = False,
-    ids_only: bool = False,
     margin: float = 0.0,
 ) -> TileBinning:
     """Build the per-tile splat lists (index order preserved within a tile).
@@ -305,10 +304,6 @@ def bin_splats(
     ``counts_only`` skips the id-matrix build and parameter pregather and
     returns just the *untruncated* per-tile counts (n_tiles,) -- used to
     auto-tune the static per-tile capacity (see tune_tile_capacity).
-
-    ``ids_only`` skips the parameter pregather (tile_params is a dummy
-    (1, 1, N_FIELDS) zero block) -- for kernels that hold the whole packed
-    table resident and fetch by id (render_pallas_resident.py).
 
     ``margin`` (pixels) expands every splat's footprint (bbox AND cull
     rect), producing a superset binning that stays valid while splats
@@ -340,8 +335,7 @@ def bin_splats(
 
     # Dense expansion: one key per (splat, slot) -- dead slots get the max
     # key and sort to the end. Sorting the dense (N * cap) array directly
-    # avoids the compaction scatter entirely (TPU scatters are slow; sorts
-    # are fine).
+    # avoids a compaction scatter.
     slot = jnp.arange(max_tiles_per_splat, dtype=jnp.int32)
     local_y = slot[None, :] // jnp.maximum(w_t, 1)[:, None]
     local_x = slot[None, :] % jnp.maximum(w_t, 1)[:, None]
@@ -425,31 +419,19 @@ def bin_splats(
         ids = jnp.where(in_seg, got, ids)
     valid = k[None, :] < tile_count[:, None]
 
-    if ids_only:
-        return TileBinning(
-            ids=ids,
-            tile_params=jnp.zeros((1, 1, N_FIELDS), jnp.float32),
-            count=tile_count,
-            n_dropped=(dropped_bbox + dropped_tile).astype(jnp.int32),
-        )
-
     # Pre-gather packed params row-major ((N, F) rows are contiguous 64-byte
-    # fetches, far friendlier to the TPU gather unit than per-field column
-    # gathers), then transpose to the kernels' (n_tiles, F, K) layout.
+    # fetches) into the (n_tiles, K, F) layout.
     fields_rows = jnp.transpose(packed_fields(p, cfg.splat_bounds))  # (N, F)
     safe_ids = jnp.where(ids >= 0, ids, 0)
     tp = fields_rows[safe_ids]                     # (n_tiles, K, F)
     # Benign padding: opacity 0 (no contribution), unit scales/inverse-cov
     # (no 0/0 in gradient formulas), h = -1 (empty row range). This keeps
-    # padded slots NaN-free so kernels may process them unguarded (needed by
-    # the manually unrolled loops).
+    # padded slots NaN-free so the rasterizer may process them unguarded.
     pad_vals = jnp.zeros((N_FIELDS,), jnp.float32)
     pad_vals = pad_vals.at[jnp.array([FIELD_A, FIELD_D, FIELD_SX, FIELD_SY,
                                       FIELD_COS])].set(1.0)
     pad_vals = pad_vals.at[FIELD_H].set(-1.0)
     tile_params = jnp.where(valid[:, :, None], tp, pad_vals[None, None, :])
-    # layout (n_tiles, K, F): gather-output order, no 800MB transpose; the
-    # kernels read per-splat scalars from SMEM where layout is free.
 
     return TileBinning(
         ids=ids,
@@ -459,76 +441,17 @@ def bin_splats(
     )
 
 
-PRODUCTION_TILE_H = 32
-DEEP_TILE_H = 64
-# 128-row tiles are RETIRED from the policy (round 4): the moment-form
-# kernel body at tile_h=128 exceeded a 60-minute remote compile on the
-# v5e terminal (the round-2 tile_h=256 wedge class), while tile_h=64
-# measures within noise of the old 128 row (1M sigma-init: 469 ms at 64
-# vs round-3's 465 at 128) -- the compile-time risk buys nothing.
-DEEPER_TILE_H = 64
-# Mean (splat, tile) pairs per 32-row tile above which taller tiles win:
-# at extreme depth the saturating walk amortizes the bigger tile's masked
-# rows over far fewer, deeper lists (1M sigma-init, mean 6534 pairs/tile:
-# 665 ms/iter at tile_h=32 -> 499 at 64 -> 470 at 128), while shallow
-# workloads lose to the boundary waste (100k, mean 639: 78.8 -> 92.6 ms
-# at 64). Thresholds interpolate the measured points. Measured on v5e.
-DEEP_TILE_THRESHOLD = 2500.0
-DEEPER_TILE_THRESHOLD = 5000.0
-# Mean vertical bbox span (in 32-row tiles) below which taller tiles cannot
-# reduce M and therefore never escalate (see tune_tile_height).
-TALL_TILE_MIN_SPAN = 1.5
+# Production pixel tile (tile_h, tile_w): a power-of-two pixel count for
+# the GPU kernel's one-program-per-tile walk, chosen on the card (PERF.md).
+PRODUCTION_TILE = (16, 16)
 
 
-def tune_tile_height(cfg: SplatConfig,
-                     p: GaussianParams | None = None) -> SplatConfig:
-    """Tile-height policy, measured on v5e (BASELINE.md tile-height sweep).
-
-    32-row tiles beat the 8-row default at EVERY measured scale:
-    268x213/1k 1.33x, 535x426/10k dense 1.78x, 10k flat 1.34x,
-    1080p/100k flat 1.16x, 1080p/1M 1.14x, 4K/4M 1.18x. Two mechanisms:
-    small images are grid-dispatch-bound (mini: 81 -> 21 grid steps), and
-    a splat spans ~4x fewer tiles, so the flat layout's pair-row count M
-    (its dominant O(pairs) pregather/scatter cost) roughly halves (4M:
-    15.5M -> 9.1M rows). The extra masked boundary rows are absorbed by
-    the saturation early-exit and deeper ILP per block. tile_h=16 LOSES
-    at every unroll factor (2/4/8 swept: 10.7/9.6/9.4 vs 8.65 at 32) and
-    64 loses at ordinary depth -- but WINS 1.33x at extreme depth (see
-    DEEP_TILE_THRESHOLD), so pass the population ``p`` when available to
-    let the policy measure the mean pair depth. The 8-row default is kept
-    for SplatConfig (tests pin bitwise goldens to it); production entries
-    (CLI, bench) call this. Callers honoring an explicit user tile_h
-    should skip it.
-    """
-    from gs2d_tpu.utils.hardware import warn_if_untuned
-
-    warn_if_untuned()  # breakpoints were measured on v5e
-    cfg32 = cfg.replace(tile_h=PRODUCTION_TILE_H)
-    if p is None:
-        return cfg32
-
-    def depth_and_span(q):
-        tx0, tx1, ty0, ty1, off = splat_tile_bbox(q, cfg32)
-        h_t = ty1 - ty0 + 1
-        live = ~off
-        pairs = jnp.sum(jnp.where(live, (tx1 - tx0 + 1) * h_t, 0))
-        span = jnp.sum(jnp.where(live, h_t, 0)) / jnp.maximum(
-            jnp.sum(live.astype(jnp.int32)), 1)
-        return pairs / jnp.float32(cfg32.n_tiles_x * cfg32.n_tiles_y), span
-
-    depth, span = (float(x) for x in
-                   jax.device_get(jax.jit(depth_and_span)(p)))
-    # Escalating tile height only pays when it can SHRINK the pair count M
-    # (the flat layout's dominant O(pairs) pregather/scatter cost): a splat
-    # spanning ~1 tile row at 32 keeps the same M under 64/128-row tiles,
-    # which then only add masked boundary rows. Measured (2026-08-19,
-    # 1080p/1M pixel-scale init, mean span 1.2, depth 4900/32-row tile):
-    # the old depth-only rule picked 64 and LOST 1.33x (841 vs 629 ms/iter
-    # at tile_h=32); sigma-6-10 init (span ~2.5, depth 6534) keeps winning
-    # with 64/128 (1.70 -> 0.47 s, BASELINE.md round-2 sweep).
-    if span > TALL_TILE_MIN_SPAN and depth > DEEP_TILE_THRESHOLD:
-        return cfg.replace(tile_h=DEEP_TILE_H)
-    return cfg32
+def tune_tile_shape(cfg: SplatConfig) -> SplatConfig:
+    """The production tile shape. SplatConfig keeps its own default for the
+    tests; production entries (CLI, benchmarks) call this. Callers honoring
+    an explicit user tile shape should skip it."""
+    th, tw = PRODUCTION_TILE
+    return cfg.replace(tile_h=th, tile_w=tw)
 
 
 def tune_max_tiles_per_splat(
@@ -601,13 +524,13 @@ def tune_tile_capacity(
 ) -> SplatConfig:
     """Pick the static per-tile capacity from the *measured* tile counts.
 
-    The capacity K scales the pregather, the kernel parameter DMA, and the
-    gradient scatter (all O(n_tiles * K)); the default heuristic
-    (render_pallas._max_per_tile) can overshoot the true maximum count by
+    The capacity K scales the pregather, the scan length, and the gradient
+    scatter (all O(n_tiles * K)); the default heuristic
+    (render_tiles.max_per_tile) can overshoot the true maximum count by
     5-10x on mid-scale workloads. This bins once in counts-only mode (no
-    pregather), takes max * margin, and rounds to a kernel-friendly size:
-    <= 256 stays a multiple of 64 (single fused kernel), above that a
-    multiple of ``chunk`` (chunked kernel). Counts drift during fitting;
+    pregather), takes max * margin, and rounds up: <= 256 to a multiple of
+    64, above that to a multiple of ``chunk``, which keeps the set of
+    compiled shapes small. Counts drift during fitting;
     overflow is caught by the n_dropped tripwire, on which fit() re-tunes.
 
     Also right-sizes ``max_tiles_per_splat`` (the binning sort width) from

@@ -1,35 +1,29 @@
-"""Flat segmented tile binning for large splat populations.
+"""Flat (tile, splat) pair binning: the GPU kernel's input layout.
 
-The dense binning (ops/tiles.py) pads every tile's list to the static
-capacity K, so the parameter pregather, the kernel DMA, and the gradient
-scatter all cost O(n_tiles * K) rows even when the mean tile count is far
-below the max (measured 5-7x waste at mid scale, worse at 1M where the
-gather/scatter units dominate the step, see BASELINE.md).
-
-This module replaces the padded (n_tiles, K) matrix with a single flat
-array of (tile, splat) pairs sorted by (tile id, splat index):
+The dense binning (ops/tiles.py) pads every tile's list to a static
+capacity K, so its pregather and gradient scatter cost O(n_tiles * K) rows
+even when the mean tile count is far below the max. This module keeps one
+flat array of (tile, splat) pairs sorted by (tile id, splat index):
 
     ids   (M,)    flat splat ids; tile t owns rows [start[t], start[t]+count[t])
     rows  (M, F)  pregathered per-splat scalars (ops/tiles.py packed_fields)
-    start (n_tiles,) block-aligned run starts (multiples of the kernel chunk)
+    start (n_tiles,) run starts (exclusive cumsum of the counts)
 
-Each tile's run start is aligned up to the kernel chunk size kc, so a tile's
-chunks are whole blocks of the flat array and no block is shared by two
-tiles: the Pallas kernels walk blocks ``start[t]//kc + c`` via scalar
-prefetch (pltpu.PrefetchScalarGridSpec), the gradient kernel writes per-pair
-gradient rows back to the same flat blocks, and one scatter-add of M rows
-(instead of n_tiles*K) segments them onto the splat axis.
-
-Cost: O(total pairs + n_tiles*kc/2) rows end to end -- proportional to the
-work that actually exists. Order contract: runs are in ascending splat index
-(compositing order, Form.pdf p2), exactly like the dense binner.
+One kernel program per tile walks its own run (ops/render_gpu.py) and the
+backward writes one moment row per pair. The layout also keeps the way
+back to splat order: splat s owns the expansion rows [splat_start[s],
+splat_start[s] + splat_count[s]), and ``pair_of`` maps each expansion row
+to its pair row, so the per-splat gradient sum is a segmented sum over
+contiguous runs in a fixed order, with no atomics (render_gpu.sum_pairs).
+Cost: O(total pairs) rows end to end.
+Order contract: runs are in ascending splat index (compositing order,
+Form.pdf p2), exactly like the dense binner.
 
 Construction is an exact-count expansion (each splat owns exactly w*h rows,
 no per-splat slot cap, so coverage is never bbox-truncated) followed by ONE
 stable sort keyed on the tile id alone: expansion rows are already in splat
 order, so stability gives the (tile, splat) lexicographic order without
-packing composite sort keys (which overflowed int32 at 4K tile counts and
-forced the old segmented multi-sort + per-segment stitch gathers).
+packing composite sort keys (which would overflow int32 at 4K tile counts).
 """
 
 from __future__ import annotations
@@ -49,32 +43,25 @@ class FlatBinning(NamedTuple):
 
     ids: jax.Array     # (M,) int32, -1 on padding rows
     rows: jax.Array    # (M, N_FIELDS) f32 pregathered params, benign padding
-    start: jax.Array   # (n_tiles,) int32, multiples of kc
+    start: jax.Array   # (n_tiles,) int32 run starts
     count: jax.Array   # (n_tiles,) int32 live entries per tile
     n_dropped: jax.Array  # scalar int32: pairs lost to capacity caps
-
-
-def flat_capacity(counts, kc: int) -> int:
-    """Rows needed for the block-aligned flat layout of measured counts."""
-    import numpy as np
-
-    c = np.asarray(counts)
-    return int((-(-c // kc) * kc).sum())
+    pair_of: jax.Array      # (M,) int32 pair row of each expansion row
+    splat_start: jax.Array  # (N,) int32 first expansion row of each splat
+    splat_count: jax.Array  # (N,) int32 expansion rows of each splat
 
 
 def tune_flat_capacity(
     p: GaussianParams,
     cfg: SplatConfig,
-    kc: int = 256,
     margin: float = 1.5,
     n_bands: int = 1,
     bin_margin: float = 0.0,
-) -> tuple[int, int]:
-    """Measure tile counts and pick (M rows, max chunks per tile).
+) -> int:
+    """Measure tile counts and pick the flat capacity M with headroom.
 
-    Returns static sizes with headroom: the flat capacity M (multiple of kc)
-    and the per-tile chunk-count cap. Counts drift during fitting; overflow
-    trips TileBinning.n_dropped and the caller re-tunes.
+    Counts drift during fitting; overflow trips FlatBinning.n_dropped and
+    the caller re-tunes.
 
     ``n_bands > 1`` sizes for banded binning under tile-axis sharding: each
     band of ``n_tiles_y / n_bands`` tile rows is binned separately per
@@ -95,14 +82,27 @@ def tune_flat_capacity(
         if cfg.n_tiles_y % n_bands:
             raise ValueError(
                 f"{cfg.n_tiles_y} tile rows not divisible by {n_bands} bands")
-        per_band = counts.reshape(n_bands, -1)
-        need = max(flat_capacity(b, kc) for b in per_band)
+        need = int(counts.reshape(n_bands, -1).sum(axis=1).max())
     else:
-        need = flat_capacity(counts, kc)
-    m = max(kc, int(need * margin))
-    m = -(-m // kc) * kc
-    max_chunks = max(1, -(-int(counts.max() * margin) // kc))
-    return m, max_chunks
+        need = int(counts.sum())
+    return max(1, int(need * margin))
+
+
+def tune_flat_config(p: GaussianParams, cfg: SplatConfig,
+                     margin: float = 1.5, n_bands: int = 1) -> SplatConfig:
+    """Fill cfg.flat_capacity from measured tile counts.
+
+    With lazy rebinning on (cfg.rebin_margin > 0) this also (a) sizes the
+    tripwire slot grid: tiles.pairs_covered_by enumerates exact footprints
+    on a max_tiles_per_splat grid and conservatively rebins EVERY step
+    once any splat exceeds it -- a cap the flat layout itself doesn't
+    have, so it must be measured, not defaulted; and (b) measures capacity
+    with the margined footprints, so the superset binning the lazy cache
+    builds can never overflow a capacity sized for margin 0."""
+    if cfg.rebin_margin > 0:
+        cfg = tl.tune_max_tiles_per_splat(p, cfg)
+    return cfg.replace(flat_capacity=tune_flat_capacity(
+        p, cfg, margin=margin, n_bands=n_bands, bin_margin=cfg.rebin_margin))
 
 
 def pregather_rows(ids: jax.Array, p: GaussianParams,
@@ -128,20 +128,16 @@ def bin_splats_flat(
     p: GaussianParams,
     cfg: SplatConfig,
     m_cap: int,
-    kc: int = 256,
-    max_chunks: int | None = None,
-    max_tiles_per_splat: int | None = None,
     band_row0=0,
     band_rows: int | None = None,
     ids_only: bool = False,
     margin: float = 0.0,
 ) -> FlatBinning:
-    """Build the flat block-aligned (tile, splat) pair layout.
+    """Build the flat (tile, splat) pair layout.
 
-    ``m_cap`` (static, multiple of kc) caps the total flat rows;
-    ``max_chunks`` caps any single tile's run at max_chunks*kc entries.
-    Overflow of either cap is counted in n_dropped (never silent). Band
-    arguments restrict binning to a band of tile rows, as in bin_splats.
+    ``m_cap`` (static) caps the total flat rows; overflow is counted in
+    n_dropped (never silent). Band arguments restrict binning to a band of
+    tile rows, as in bin_splats.
 
     ``ids_only`` skips the per-row parameter pregather (rows comes back
     as a (1, N_FIELDS) placeholder) -- for the lazy-rebinning cache,
@@ -152,16 +148,10 @@ def bin_splats_flat(
     contract as ``tiles.bin_splats(margin=...)``, checked by
     ``tiles.pairs_covered_by``.
     """
-    if m_cap % kc:
-        raise ValueError(f"m_cap {m_cap} must be a multiple of kc {kc}")
-    n = p.pos.shape[0]
     if band_rows is None:
         band_rows = cfg.n_tiles_y
         band_row0 = 0
     n_tiles = band_rows * cfg.n_tiles_x
-    if max_chunks is None:
-        max_chunks = m_cap // kc
-    del max_tiles_per_splat  # exact expansion: no per-splat tile cap at all
 
     # --- exact-count pair expansion ---------------------------------------
     # Each splat owns a run of exactly w*h rows in the expansion array (no
@@ -169,11 +159,7 @@ def bin_splats_flat(
     # row -> owning-splat map is built with ONE scatter+cumsum (+1 at every
     # run start; coincident starts of empty splats telescope so empty runs
     # are skipped); every other per-splat value then arrives through ONE
-    # multi-channel row gather. Measured on v5e (2026-08-19, N=1M, E=2M):
-    # a scatter+cumsum broadcast costs ~10 ms PER CHANNEL while a whole
-    # (E, 12) row gather is ~16 ms -- the gather unit pays per row, not
-    # per element, so above one channel the gather wins (the original
-    # per-channel-broadcast design predates the cull's 5-6 float channels).
+    # multi-channel row gather instead of one broadcast per channel.
     (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd, qk2) = \
         tl._bbox_and_quad(p, cfg, margin)
     band_row0 = jnp.asarray(band_row0, jnp.int32)
@@ -187,6 +173,8 @@ def bin_splats_flat(
     starts = jnp.cumsum(cnt) - cnt                  # exclusive, (n,)
     total = starts[-1] + cnt[-1]
     e_cap = m_cap                                   # expansion capacity
+    # Pairs past the capacity (the highest splat indices) are dropped and
+    # counted.
     dropped_exp = jnp.maximum(total - e_cap, 0)
 
     e = jnp.arange(e_cap, dtype=jnp.int32)
@@ -226,50 +214,28 @@ def bin_splats_flat(
     # Expansion rows are in ascending splat order, so a stable sort on the
     # (small-int) tile key alone yields (tile, splat)-lexicographic order:
     # exactly the compositing order the kernels need (Form.pdf p2).
-    sorted_tile, sorted_id = jax.lax.sort(
-        (tile_e, splat_e), num_keys=1, is_stable=True)
+    sorted_tile, sorted_id, sorted_e = jax.lax.sort(
+        (tile_e, splat_e, e), num_keys=1, is_stable=True)
+    # The sort is a permutation of the expansion rows; invert it (unique
+    # indices, so the scatter is exact).
+    pair_of = jnp.zeros((e_cap,), jnp.int32).at[sorted_e].set(e)
 
+    # Live rows are already at their final flat positions: tile t's run
+    # starts where the sorted keys reach t, and dead rows (splat id -1)
+    # sort to the end.
     tiles_iota = jnp.arange(n_tiles, dtype=jnp.int32)
-    run_start = jnp.searchsorted(sorted_tile, tiles_iota,
-                                 side="left").astype(jnp.int32)
-    run_end = jnp.searchsorted(sorted_tile, tiles_iota,
-                               side="right").astype(jnp.int32)
-    count_all = run_end - run_start                 # (n_tiles,)
-
-    # --- block-aligned flat run layout -------------------------------------
-    count = jnp.minimum(count_all, max_chunks * kc)
-    dropped_chunks = jnp.sum(count_all - count)
-    blocks = -(-count // kc)                        # chunks per tile
-    start_raw = (jnp.cumsum(blocks) - blocks) * kc  # aligned starts
-    # Tiles whose run would spill past the flat capacity are dropped whole
-    # (counted); their start is clamped to m_cap, which keeps the array
-    # non-decreasing (searchsorted requirement) and maps them to zero rows.
-    fits = start_raw + blocks * kc <= m_cap
-    dropped_cap = jnp.sum(jnp.where(fits, 0, count))
-    count = jnp.where(fits, count, 0)
-    start = jnp.minimum(start_raw, m_cap)
-
-    # --- scatter sorted rows to their block-aligned flat positions --------
-    # Sorted row p of tile t lands at start[t] + (p - run_start[t]). The
-    # per-tile values arrive through one (E, 3) row gather keyed on
-    # sorted_tile (the sorted keys ARE the owning tile ids -- no broadcast
-    # needed at all; dead rows carry key n_tiles, clamped then masked).
-    tch = jnp.stack([run_start, count, start], axis=1)[
-        jnp.minimum(sorted_tile, n_tiles - 1)]
-    p_iota = jnp.arange(e_cap, dtype=jnp.int32)
-    rank_t = p_iota - tch[:, 0]
-    valid = (sorted_tile < n_tiles) & (rank_t < tch[:, 1])
-    dest = jnp.where(valid, tch[:, 2] + rank_t, m_cap)
-    ids = jnp.full((m_cap,), jnp.int32(-1)).at[dest].set(
-        sorted_id, mode="drop")
-    dropped_bbox = jnp.int32(0)  # exact expansion: bbox never truncated
+    start = jnp.searchsorted(sorted_tile, tiles_iota,
+                             side="left").astype(jnp.int32)
+    end = jnp.searchsorted(sorted_tile, tiles_iota,
+                           side="right").astype(jnp.int32)
+    ids = sorted_id
 
     rows = (jnp.zeros((1, tl.N_FIELDS), jnp.float32) if ids_only
             else pregather_rows(ids, p, cfg))
 
     return FlatBinning(
-        ids=ids, rows=rows, start=start.astype(jnp.int32),
-        count=count.astype(jnp.int32),
-        n_dropped=(dropped_bbox + dropped_exp + dropped_chunks
-                   + dropped_cap).astype(jnp.int32),
+        ids=ids, rows=rows, start=start, count=end - start,
+        n_dropped=dropped_exp.astype(jnp.int32), pair_of=pair_of,
+        splat_start=starts.astype(jnp.int32),
+        splat_count=cnt.astype(jnp.int32),
     )

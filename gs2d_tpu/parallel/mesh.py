@@ -13,7 +13,7 @@ The framework shards over up to three logical axes (SURVEY.md section 2):
              stand-in for ring attention)
 
 The reference has no distributed layer at all (single thread, main.cpp);
-everything here is net-new TPU design.
+everything here is net-new.
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ def make_mesh(
 ) -> Mesh:
     """A (data, tile, splat) mesh over the given (or all) devices.
 
-    Axis sizes must multiply to the device count. On a real pod slice, keep
-    the splat axis innermost so its ordered combine rides ICI neighbours.
+    Axis sizes must multiply to the device count.
     """
     if devices is None:
         devices = jax.devices()

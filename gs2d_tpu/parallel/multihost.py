@@ -2,16 +2,11 @@
 
 One JAX process per host; `jax.distributed.initialize` wires the cluster,
 after which `jax.devices()` spans all hosts and the (data, tile, splat) mesh
-of `parallel/mesh.py` works unchanged -- shard_map inserts DCN collectives
-across hosts and ICI collectives within a slice automatically.
-
-Axis placement guidance (the scaling-book recipe):
-- Put the **splat** axis innermost (fastest-varying over devices) so the
-  ordered-monoid combine's ppermute/all_gather rides ICI neighbour links.
-- Put **data** outermost: per-image populations never communicate, so the
-  data axis can span DCN with zero cost.
-- The **tile** axis's gradient psum is one all-reduce of ~36*N bytes per
-  step; keep it within a slice when possible.
+of `parallel/mesh.py` works unchanged -- shard_map inserts the
+collectives across hosts and within a host automatically. The mesh follows
+the algorithm: per-image populations (the **data** axis) never
+communicate; the **tile** axis's gradient psum is one all-reduce of ~36*N
+bytes per step; the **splat** axis carries the ordered-monoid combine.
 
 This module is exercised on single-host virtual meshes in CI; real
 multi-host runs need only `initialize_cluster()` before building the mesh.
@@ -34,7 +29,7 @@ def initialize_cluster(
 ) -> None:
     """Initialize jax.distributed from args or standard env vars
     (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID); no-op when
-    single-process or when the TPU runtime auto-detects (GKE/TPU VM).
+    single-process (no coordinator given).
 
     Must run before anything touches the XLA backend (jax.devices etc.) --
     so the already-initialized check uses jax.distributed.is_initialized,
@@ -86,8 +81,8 @@ def fetch_replicated(x):
 
 def default_pod_mesh(data: int = 1, tile: Optional[int] = None,
                      splat: Optional[int] = None):
-    """A sensible mesh over every device in the cluster: splat innermost
-    (ICI), then tile, data outermost (DCN-tolerant)."""
+    """A sensible mesh over every device in the cluster: splat innermost,
+    then tile, data outermost."""
     n = jax.device_count()
     if tile is None and splat is None:
         # default: no data parallelism, split the rest tile x splat evenly

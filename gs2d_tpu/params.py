@@ -1,7 +1,7 @@
 """Splat parameters as a structure-of-arrays pytree.
 
 The reference stores an array-of-structs ``std::vector<Splat>`` with 9 DOF per
-splat (main.cpp:85-93). On TPU the idiomatic layout is SoA: one contiguous
+splat (main.cpp:85-93). On an accelerator the idiomatic layout is SoA: one contiguous
 array per parameter, so every kernel reads dense vectors and sharding is a
 one-line ``NamedSharding`` on the splat axis.
 """
@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from gs2d_tpu.config import PI, SplatConfig
 from gs2d_tpu.ops.numerics import pcg3d_unit
+from gs2d_tpu.utils import pytree
 
 # Sentinel x-position of a dead (pruned, not-yet-refilled) splat slot. Dead
 # slots are parked far off-screen so tile binning excludes them for free; they
@@ -22,7 +22,7 @@ from gs2d_tpu.ops.numerics import pcg3d_unit
 DEAD_POS = -1.0e6
 
 
-@struct.dataclass
+@pytree.dataclass
 class GaussianParams:
     """9-DOF per-splat parameters (reference main.cpp:85-93), SoA layout.
 

@@ -5,7 +5,7 @@ The reference keeps 9 independent scalar Adam states per splat
 multiplied *before* the updates each iteration (main.cpp:718-719), and clamps
 parameters afterwards (main.cpp:740-749). This module reproduces those
 semantics as a pure pytree transformation (SoA moments, same float32 math),
-which is the TPU-idiomatic form: one fused elementwise update over (N,)-shaped
+which is the accelerator-idiomatic form: one fused elementwise update over (N,)-shaped
 arrays instead of 9N scalar calls.
 
 optax is deliberately not used for the core update: its scale_by_adam applies
@@ -18,14 +18,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from gs2d_tpu.config import SplatConfig
 from gs2d_tpu.params import (GaussianParams, clamp_params, freeze_dead_slots,
                              zeros_like_params)
+from gs2d_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class AdamState:
     """First/second moments (SoA, mirrors SplatAdam main.cpp:158-166) plus the
     running bias powers and iteration count (main.cpp:274-278)."""

@@ -3,7 +3,7 @@
 The reference fits a fixed 1024-splat population (main.cpp:271). For the
 large-scale configs (BASELINE.json configs[4]: 4K multi-image, 4M Gaussians,
 densify/prune) the framework adds 3DGS-style density control adapted to 2D
-image fitting, designed TPU-first:
+image fitting, designed for static shapes:
 
 - **Static capacity**: the population lives in fixed-size (N, ...) arrays so
   jit never recompiles. Dead slots are parked off-screen (pos = -1e6) with
@@ -196,9 +196,8 @@ def fit_adaptive_batched(
     import jax
     import jax.numpy as jnp
 
-    from gs2d_tpu.ops import render_pallas as rp
-    from gs2d_tpu.ops import render_pallas_flat as rpf
-    from gs2d_tpu.ops import tiles as tl
+    from gs2d_tpu import backend
+    from gs2d_tpu.ops import render_tiles as rt
     from gs2d_tpu.parallel.sharded import init_batched_state
     from gs2d_tpu.train.loop import make_fit_scan_batched
 
@@ -209,26 +208,24 @@ def fit_adaptive_batched(
     def retune(cfg):
         # Shared statics must cover EVERY image's population: tune per
         # image, take the max (B is small).
-        imgs = [jax.tree.map(lambda x: x[i], state.params)
-                for i in range(b)]
-        if rpf.use_flat(cfg):
-            tuned = [rpf.tune_flat_config(p, cfg) for p in imgs]
-            return cfg.replace(
-                flat_capacity=max(t.flat_capacity for t in tuned),
-                flat_max_chunks=max(t.flat_max_chunks for t in tuned),
-                max_tiles_per_splat=max(
-                    t.max_tiles_per_splat for t in tuned))
-        tuned = [tl.tune_tile_capacity(p, cfg) for p in imgs]
-        return cfg.replace(
-            max_splats_per_tile=max(t.max_splats_per_tile for t in tuned),
-            max_tiles_per_splat=max(t.max_tiles_per_splat for t in tuned))
+        untuned = cfg.replace(flat_capacity=None, max_splats_per_tile=None)
+        tuned = [rt.tune_binning(jax.tree.map(lambda x: x[i], state.params),
+                                 untuned) for i in range(b)]
 
-    if (rpf.use_flat(cfg) and cfg.flat_capacity is None) \
-            or (not rpf.use_flat(cfg) and cfg.max_splats_per_tile is None):
+        def most(field):
+            vals = [getattr(t, field) for t in tuned]
+            return None if vals[0] is None else max(vals)
+
+        return cfg.replace(flat_capacity=most("flat_capacity"),
+                           max_splats_per_tile=most("max_splats_per_tile"),
+                           max_tiles_per_splat=most("max_tiles_per_splat"))
+
+    flat = backend.resolve_binning(cfg) == "flat"
+    if (cfg.flat_capacity if flat else cfg.max_splats_per_tile) is None:
         cfg = retune(cfg)
 
     def pad_refs(cfg):
-        return jnp.stack([rp.pad_ref_chw(jnp.asarray(r), cfg)
+        return jnp.stack([rt.pad_ref_chw(jnp.asarray(r), cfg)
                           for r in refs])
 
     refsp = pad_refs(cfg)
@@ -314,7 +311,7 @@ def fit_adaptive(
     opacity_reset_every: int = 0,
     opacity_reset_value: float = 0.3,
 ):
-    """Production adaptive-density fitting on the fused Pallas path.
+    """Production adaptive-density fitting on the production tile path.
 
     The densification signal -- |dL/d pos| accumulated over the preceding
     window (the 3DGS view-space gradient recipe) -- is summed ON DEVICE by
@@ -329,8 +326,7 @@ def fit_adaptive(
     import jax
     import jax.numpy as jnp
 
-    from gs2d_tpu.ops import render_pallas as rp
-    from gs2d_tpu.ops import render_pallas_flat as rpf
+    from gs2d_tpu.ops import render_tiles as rt
     from gs2d_tpu.train.loop import (init_train_state, make_fit_scan_fused,
                                      make_train_step_fused)
 
@@ -339,16 +335,11 @@ def fit_adaptive(
 
     def retune(cfg):
         """(Re-)derive the binning capacity statics from the population."""
-        if rpf.use_flat(cfg):
-            return rpf.tune_flat_config(state.params, cfg)
-        from gs2d_tpu.ops import tiles as tl
+        return rt.tune_binning(state.params, cfg.replace(
+            flat_capacity=None, max_splats_per_tile=None))
 
-        return tl.tune_tile_capacity(state.params, cfg)
-
-    if (rpf.use_flat(cfg) and cfg.flat_capacity is None) \
-            or (not rpf.use_flat(cfg) and cfg.max_splats_per_tile is None):
-        cfg = retune(cfg)
-    refp = rp.pad_ref_chw(jnp.asarray(ref), cfg)
+    cfg = rt.tune_binning(state.params, cfg)
+    refp = rt.pad_ref_chw(jnp.asarray(ref), cfg)
 
     history = []
     done = 0
@@ -412,6 +403,6 @@ def fit_adaptive(
                            f"{window_drops} splat-tile pairs dropped in the "
                            f"window ending at {done}; re-tuning capacities")
                 cfg = retune(cfg)
-                refp = rp.pad_ref_chw(jnp.asarray(ref), cfg)
+                refp = rt.pad_ref_chw(jnp.asarray(ref), cfg)
     jax.block_until_ready(state.params.pos)
     return state, history

@@ -6,8 +6,8 @@ literature (loss = (1-lam)*L2 + lam*(1 - SSIM), lam typically 0.2), which
 trades a little PSNR for visibly better edge/texture reconstruction.
 
 The SSIM head runs as plain JAX on top of the rasterizer's analytic
-custom-VJP (ops/render_pallas.render): XLA differentiates the window
-statistics, the Pallas backward supplies dC/dparams. The Gaussian window
+custom-VJP (render_tiles.production_render): XLA differentiates the window
+statistics, the analytic backward supplies dC/dparams. The Gaussian window
 is applied as two separable depthwise 1-D convolutions -- the XLA-friendly
 formulation (static shapes, maps onto the conv units) rather than the
 literature's dense 11x11 window.
@@ -48,12 +48,15 @@ def _blur(img, window: int, sigma: float):
     kh = jnp.broadcast_to(k[None, None, None, :], (c, 1, 1, window))
     dn = jax.lax.conv_dimension_numbers(x.shape, kv.shape,
                                         ("NCHW", "OIHW", "NCHW"))
+    # HIGHEST keeps TF32 out of the windows on a GPU.
     x = jax.lax.conv_general_dilated(x, kv, (1, 1), "SAME",
                                      dimension_numbers=dn,
-                                     feature_group_count=c)
+                                     feature_group_count=c,
+                                     precision=jax.lax.Precision.HIGHEST)
     x = jax.lax.conv_general_dilated(x, kh, (1, 1), "SAME",
                                      dimension_numbers=dn,
-                                     feature_group_count=c)
+                                     feature_group_count=c,
+                                     precision=jax.lax.Precision.HIGHEST)
     return jnp.transpose(x[0], (1, 2, 0))
 
 

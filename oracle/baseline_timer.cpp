@@ -6,7 +6,7 @@
 // independent, GUI-free re-implementation of the same algorithm -- forward
 // front-to-back rasterization, analytic backward, per-parameter Adam --
 // written SoA-style for clarity, compiled with gcc -O2, used ONLY to produce
-// the baseline timings the TPU framework is compared against.
+// the baseline timings the JAX framework is compared against.
 //
 // Input: a raw float32 RGB image dumped by scripts/dump_target.py
 //   header: int32 height, int32 width, then h*w*3 float32s.

@@ -7,7 +7,7 @@ front-to-back compositing, truncated integer loop bounds, float32 arithmetic,
 the (1+x/8)^8 fast exponential, the transmittance early-out at 1/256 -- while
 being written as row-vectorized NumPy for tolerable speed.
 
-It is intentionally NOT TPU-idiomatic and NOT fast; it exists so the JAX and
+It is intentionally NOT accelerator-idiomatic and NOT fast; it exists so the JAX and
 Pallas paths have something loop-faithful to be allclose against.
 
 Semantics mirrored (with reference citations):

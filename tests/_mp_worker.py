@@ -50,7 +50,7 @@ import numpy as np
 from gs2d_tpu.config import SplatConfig
 from gs2d_tpu.io.checkpoint import Checkpointer
 from gs2d_tpu.io.image import synthetic_target
-from gs2d_tpu.ops import render_pallas as rp
+from gs2d_tpu.ops import render_tiles as rp
 from gs2d_tpu.parallel.mesh import make_mesh
 from gs2d_tpu.parallel.multihost import fetch_replicated, put_global
 from gs2d_tpu.parallel.sharded import (init_batched_state,
@@ -65,7 +65,7 @@ cfg = SplatConfig(width=W, height=H, n_splats=32, tile_h=8,
 # BOTH mesh axes cross process boundaries on every edge; with 2 x 2 the
 # tile axis crosses processes and splat is intra-process.
 mesh = make_mesh(tile=2, splat=2)
-step, sh = make_sharded_train_step(cfg, mesh, renderer="pallas",
+step, sh = make_sharded_train_step(cfg, mesh, renderer="tiles",
                                    overlap_chunks=2, combine=combine)
 
 ref = synthetic_target(H, W, seed=0)

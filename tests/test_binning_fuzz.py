@@ -49,7 +49,7 @@ def brute_force_incidence(p: GaussianParams, cfg: SplatConfig):
 
 def brute_force_coverage(p: GaussianParams, cfg: SplatConfig):
     """Per-pixel walked set, mimicking the kernel masks exactly
-    (render_pallas._splat_terms; main.cpp:489-511 trunc semantics): a
+    (render_gpu.splat_terms; main.cpp:489-511 trunc semantics): a
     (splat -> set of tile ids) map of tiles holding at least one pixel the
     kernel would touch for that splat. f32 arithmetic like the kernels."""
     f32 = np.float32
@@ -145,8 +145,8 @@ def dense_per_tile(p, cfg, k=16):
             for t in range(ids.shape[0]) if count[t]}
 
 
-def flat_per_tile(p, cfg, kc=16):
-    b = jax.jit(lambda q: tlf.bin_splats_flat(q, cfg, 64 * kc, kc=kc))(p)
+def flat_per_tile(p, cfg, cap=1024):
+    b = jax.jit(lambda q: tlf.bin_splats_flat(q, cfg, cap))(p)
     ids = np.asarray(b.ids)
     start = np.asarray(b.start)
     count = np.asarray(b.count)
@@ -201,20 +201,23 @@ def test_culled_binning_contract_fuzz(data):
 @settings(max_examples=6, deadline=None)
 @given(splats_strategy(8))
 def test_fused_kernel_matches_scan_fuzz(data):
-    """Random populations through the fused Pallas kernel (interpret) vs
-    the scan renderer: forward allclose-at-fp32, gradients allclose."""
+    """Random populations through the GPU kernel (interpret) vs the scan
+    renderer: forward allclose-at-fp32, gradients allclose."""
     import jax.numpy as jnp
 
-    from gs2d_tpu.ops import render_pallas as rp
+    from gs2d_tpu.ops import render_gpu as rg
+    from gs2d_tpu.ops import render_tiles as rp
+    from gs2d_tpu.ops import tiles_flat as tlf
     from gs2d_tpu.ops.render_jax import render_backward, render_forward
 
     n = 8
-    cfg = SplatConfig(width=64, height=48, n_splats=n, tile_h=32)
+    cfg = SplatConfig(width=64, height=48, n_splats=n, tile_h=32,
+                      interpret=True)
     p = make_params(data, n)
     ref = np.full((48, 64, 3), 0.25, np.float32)
     refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-    b = tl.bin_splats(p, cfg, 8)
-    C, g = rp.l2_render_and_grads(b, refc, n, cfg, p)
+    b = tlf.bin_splats_flat(p, cfg, max(1, tlf.tune_flat_capacity(p, cfg)))
+    C, g = rg.l2_render_and_grads_flat(b, refc, n, cfg, p)
     C1, _ = render_forward(p, cfg)
     g1 = render_backward(p, C1, C1 - jnp.asarray(ref), cfg)
     np.testing.assert_allclose(np.asarray(C), np.asarray(C1), atol=3e-7)
@@ -264,7 +267,7 @@ def test_lazy_rebin_tripwire_soundness_fuzz(data, drifts, scale_mul):
     if not covered:
         return  # tripping is always safe (forces a rebin)
     got = jax.jit(lambda q: tl.bin_splats(
-        q, cfg, 64, max_tiles_per_splat=64, ids_only=True,
+        q, cfg, 64, max_tiles_per_splat=64,
         margin=margin))(p_old)
     ids = np.asarray(got.ids)
     count = np.asarray(got.count)

@@ -96,7 +96,7 @@ def test_dead_slots_survive_training_steps():
 
 def test_step_signal_matches_explicit_grad():
     """StepAux.pos_grad_mag == |jax.grad(l2_loss).pos| at the same state."""
-    from gs2d_tpu.ops import render_pallas as rp
+    from gs2d_tpu.ops import render_tiles as rp
     from gs2d_tpu.train.loop import make_train_step_fused
 
     cfg = SplatConfig(width=W, height=H, n_splats=32, max_splats_per_tile=32)
@@ -198,7 +198,7 @@ def test_fit_adaptive_batched_multi_image():
     from gs2d_tpu.train.densify import fit_adaptive_batched
 
     cfg = SplatConfig(width=W, height=H, n_splats=32, binning="flat",
-                      rebin_margin=2.0)
+                      interpret=True, rebin_margin=2.0)
     refs = [synthetic_target(H, W, seed=0), synthetic_target(H, W, seed=3)]
     state, hist = fit_adaptive_batched(
         refs, cfg, iterations=30, densify_every=10, scan_chunk=5,
@@ -212,12 +212,14 @@ def test_fit_adaptive_batched_multi_image():
 
 
 def test_fit_adaptive_batched_resident_with_reset():
-    """Batched adaptive path on the resident layout with opacity resets
-    (optimize_opacity on): runs, stays finite, refills capacity."""
+    """Batched adaptive path on the flat layout (the GPU kernel in
+    interpret mode) with lazy rebinning and opacity resets (optimize_opacity
+    on): runs, stays finite, refills capacity."""
     from gs2d_tpu.train.densify import fit_adaptive_batched
 
-    cfg = SplatConfig(width=W, height=H, n_splats=32, binning="resident",
-                      max_splats_per_tile=32, optimize_opacity=True)
+    cfg = SplatConfig(width=W, height=H, n_splats=32, binning="flat",
+                      interpret=True, rebin_margin=2.0,
+                      optimize_opacity=True)
     refs = [synthetic_target(H, W, seed=1), synthetic_target(H, W, seed=2)]
     state, hist = fit_adaptive_batched(
         refs, cfg, iterations=24, densify_every=8, scan_chunk=4,

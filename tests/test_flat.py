@@ -1,5 +1,5 @@
-"""Flat block-aligned binning + kernels vs the dense path and scan renderer
-(interpret mode on CPU)."""
+"""Flat pair binning + the Pallas-Triton kernel (interpret mode on CPU) vs
+the dense plain path and the scan renderer."""
 
 import jax
 import jax.numpy as jnp
@@ -7,26 +7,25 @@ import numpy as np
 import pytest
 
 from gs2d_tpu.config import SplatConfig
-from gs2d_tpu.ops import render_pallas as rp
-from gs2d_tpu.ops import render_pallas_flat as rpf
+from gs2d_tpu.ops import render_gpu as rg
+from gs2d_tpu.ops import render_tiles as rt
 from gs2d_tpu.ops import tiles as tl
 from gs2d_tpu.ops import tiles_flat as tlf
 from gs2d_tpu.ops.render_jax import render_backward, render_forward
 from tests.helpers import random_splats, to_params
 
 H, W = 48, 64
-KC = 64
 
 
 def make_case(rng, n, **kw):
-    cfg = SplatConfig(width=W, height=H, n_splats=n)
+    cfg = SplatConfig(width=W, height=H, n_splats=n, interpret=True)
     s = random_splats(rng, n, W, H, **kw)
     return cfg, s, to_params(s)
 
 
-def flat_of(p, cfg, kc=KC, margin=2.0):
-    m, mc = tlf.tune_flat_capacity(p, cfg, kc=kc, margin=margin)
-    return tlf.bin_splats_flat(p, cfg, m, kc=kc, max_chunks=mc), m, mc
+def flat_of(p, cfg, margin=2.0):
+    m = tlf.tune_flat_capacity(p, cfg, margin=margin)
+    return tlf.bin_splats_flat(p, cfg, m), m
 
 
 class TestFlatBinning:
@@ -34,7 +33,7 @@ class TestFlatBinning:
         """Per-tile runs (content and order) equal the dense binner's."""
         cfg, s, p = make_case(rng, 96)
         dense = tl.bin_splats(p, cfg, 96)
-        flat, m, mc = flat_of(p, cfg)
+        flat, m = flat_of(p, cfg)
         ids = np.asarray(flat.ids)
         start = np.asarray(flat.start)
         count = np.asarray(flat.count)
@@ -51,40 +50,72 @@ class TestFlatBinning:
             live[start[t]: start[t] + count[t]] = True
         assert (ids[~live] == -1).all()
 
-    def test_block_alignment(self, rng):
+    def test_runs_contiguous(self, rng):
+        """Runs are packed back to back: start is the exclusive cumsum of
+        the counts, and the live rows are exactly the first sum(count)."""
         cfg, s, p = make_case(rng, 64)
-        flat, m, mc = flat_of(p, cfg)
+        flat, m = flat_of(p, cfg)
         start = np.asarray(flat.start)
         count = np.asarray(flat.count)
-        assert (start % KC == 0).all()
-        assert (count <= mc * KC).all()
-        # no block shared by two tiles
-        for t in range(len(count) - 1):
-            end_blocks = -(-count[t] // KC)
-            assert start[t + 1] >= start[t] + end_blocks * KC \
-                or count[t + 1] == 0
+        np.testing.assert_array_equal(start, np.cumsum(count) - count)
+        ids = np.asarray(flat.ids)
+        assert (ids[: count.sum()] >= 0).all()
+        assert (ids[count.sum():] == -1).all()
 
-    def test_capacity_overflow_counted(self, rng):
+    @pytest.mark.parametrize("m_cap", [1, 16, 40])
+    def test_capacity_overflow_counted(self, rng, m_cap):
+        """Pairs past the capacity are dropped and counted, never silent:
+        kept + dropped covers the uncapped pair count (dropped counts
+        expansion rows, before the exact-ellipse cull)."""
         cfg, s, p = make_case(rng, 64)
-        flat = tlf.bin_splats_flat(p, cfg, m_cap=KC, kc=KC, max_chunks=1)
-        assert int(flat.n_dropped) > 0
+        full, _ = flat_of(p, cfg)
+        flat = tlf.bin_splats_flat(p, cfg, m_cap=m_cap)
+        kept = int(np.asarray(flat.count).sum())
+        assert kept <= m_cap and int(flat.n_dropped) > 0
+        assert kept + int(flat.n_dropped) >= int(np.asarray(full.count).sum())
 
     def test_segmented_matches(self, rng):
-        """Forcing multi-segment sort keys yields identical runs."""
+        """Re-binning with a larger capacity yields identical runs."""
         cfg, s, p = make_case(rng, 96)
-        a, m, mc = flat_of(p, cfg)
-        # re-bin with the segment split the int31 key budget would force
-        import gs2d_tpu.ops.tiles_flat as mod
-        b = tlf.bin_splats_flat(p, cfg, m, kc=KC, max_chunks=mc)
-        np.testing.assert_array_equal(np.asarray(a.ids), np.asarray(b.ids))
+        a, m = flat_of(p, cfg)
+        b = tlf.bin_splats_flat(p, cfg, 2 * m)
+        n_live = int(np.asarray(a.count).sum())
+        np.testing.assert_array_equal(np.asarray(a.ids)[:n_live],
+                                      np.asarray(b.ids)[:n_live])
+        np.testing.assert_array_equal(np.asarray(a.start),
+                                      np.asarray(b.start))
+
+
+class TestSumPairs:
+    @pytest.mark.parametrize("mask_band", [False, True])
+    def test_matches_scatter_add(self, rng, mask_band):
+        """The fixed-order per-splat sum of pair rows equals a scatter-add
+        of the same rows; rows with id -1 (padding, culled pairs, rows
+        outside a sub-band) hold garbage and count as zero."""
+        cfg, s, p = make_case(rng, 96)
+        flat, m = flat_of(p, cfg)
+        if mask_band:
+            half = int(np.asarray(flat.start)[len(flat.start) // 2])
+            flat = flat._replace(ids=jnp.where(
+                jnp.arange(m) < half, flat.ids, -1))
+        ids = np.asarray(flat.ids)
+        rows = rng.normal(0, 1, (m, rg.N_GRAD_FIELDS)).astype(np.float32)
+        rows[ids < 0] = np.nan
+        got = rg.sum_pairs(flat, jnp.asarray(rows))
+        want = rg.grads_of_rows(flat.ids, jnp.where(
+            (flat.ids >= 0)[:, None], jnp.asarray(rows), 0.0), 96)
+        for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
+            np.testing.assert_allclose(np.asarray(getattr(got, f)),
+                                       np.asarray(getattr(want, f)),
+                                       rtol=1e-5, atol=1e-5, err_msg=f)
 
 
 class TestFlatKernels:
     @pytest.mark.parametrize("n", [32, 96])
     def test_forward_matches_scan(self, rng, n):
         cfg, s, p = make_case(rng, n)
-        flat, m, mc = flat_of(p, cfg)
-        C, T = rpf.forward_flat(flat, cfg, KC, mc)
+        flat, m = flat_of(p, cfg)
+        C, T = rg.forward_flat(flat, cfg)
         C1, T1 = render_forward(p, cfg)
         np.testing.assert_allclose(
             np.asarray(C)[:H, :W], np.asarray(C1), atol=3e-7)
@@ -94,14 +125,13 @@ class TestFlatKernels:
     def test_l2_matches_dense_fused(self, rng):
         cfg, s, p = make_case(rng, 96)
         ref = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
+        refc = rt.pad_ref_chw(jnp.asarray(ref), cfg)
 
         dense = tl.bin_splats(p, cfg, 96)
-        C_d, g_d = rp.l2_render_and_grads(dense, refc, 96, cfg, p)
+        C_d, g_d = rt.l2_render_and_grads(dense, refc, 96, cfg, p)
 
-        flat, m, mc = flat_of(p, cfg)
-        C_f, g_f = rpf.l2_render_and_grads_flat(flat, refc, 96, cfg, KC, mc,
-                                                params=p)
+        flat, m = flat_of(p, cfg)
+        C_f, g_f = rg.l2_render_and_grads_flat(flat, refc, 96, cfg, p)
 
         np.testing.assert_allclose(np.asarray(C_f), np.asarray(C_d),
                                    atol=3e-7)
@@ -113,7 +143,7 @@ class TestFlatKernels:
 
     def test_backward_matches_scan(self, rng):
         cfg, s, p = make_case(rng, 64)
-        flat, m, mc = flat_of(p, cfg)
+        flat, m = flat_of(p, cfg)
         C1, _ = render_forward(p, cfg)
         gC = jnp.asarray(
             rng.uniform(-1, 1, (H, W, 3)).astype(np.float32))
@@ -122,7 +152,7 @@ class TestFlatKernels:
         hp, wp = cfg.padded_height, cfg.padded_width
         fin_p = jnp.zeros((hp, wp, 3)).at[:H, :W].set(C1)
         gC_p = jnp.zeros((hp, wp, 3)).at[:H, :W].set(gC)
-        g2 = rpf.backward_flat(flat, fin_p, gC_p, 64, cfg, KC, mc, params=p)
+        g2 = rg.backward_flat(flat, fin_p, gC_p, 64, cfg, p)
         for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
             a = np.asarray(getattr(g1, f))
             b = np.asarray(getattr(g2, f))
@@ -139,12 +169,12 @@ class TestFlatKernels:
         state = init_train_state(base)
 
         cfg_d = base.replace(binning="dense", max_splats_per_tile=64)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg_d)
+        refc = rt.pad_ref_chw(jnp.asarray(ref), cfg_d)
         s_d, aux_d = make_train_step_fused(cfg_d)(state, refc)
 
-        cfg_f = rpf.tune_flat_config(
+        cfg_f = tlf.tune_flat_config(
             init_train_state(base).params,
-            base.replace(binning="flat", flat_chunk=KC))
+            base.replace(binning="flat", interpret=True))
         s_f, aux_f = make_train_step_fused(cfg_f)(state, refc)
 
         assert np.isclose(float(aux_f.mse), float(aux_d.mse), rtol=1e-6)
@@ -163,11 +193,11 @@ class TestFlatKernels:
         from gs2d_tpu.train.loop import init_train_state
 
         base = SplatConfig(width=W, height=H, n_splats=64)
-        cfg_f = rpf.tune_flat_config(
+        cfg_f = tlf.tune_flat_config(
             init_train_state(base).params,
-            base.replace(binning="flat", flat_chunk=KC))
+            base.replace(binning="flat", interpret=True))
         ref = synthetic_target(H, W)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg_f)
+        refc = rt.pad_ref_chw(jnp.asarray(ref), cfg_f)
         state = init_train_state(cfg_f)
 
         loop.make_train_step_fused.cache_clear()
@@ -191,10 +221,10 @@ class TestFlatKernels:
         (the 4K band-streaming building block)."""
         cfg, s, p = make_case(rng, 64)
         ref = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-        flat_full, m, mc = flat_of(p, cfg)
-        C_full, g_full = rpf.l2_render_and_grads_flat(
-            flat_full, refc, 64, cfg, KC, mc, params=p)
+        refc = rt.pad_ref_chw(jnp.asarray(ref), cfg)
+        flat_full, m = flat_of(p, cfg)
+        C_full, g_full = rg.l2_render_and_grads_flat(flat_full, refc, 64,
+                                                     cfg, p)
 
         rows = cfg.n_tiles_y // 2
         th = cfg.tile_h
@@ -202,13 +232,12 @@ class TestFlatKernels:
         bands = []
         for b in range(2):
             r0 = b * rows
-            m_b, mc_b = tlf.tune_flat_capacity(p, cfg, kc=KC, margin=2.0)
-            fb = tlf.bin_splats_flat(p, cfg, m_b, kc=KC, max_chunks=mc_b,
-                                     band_row0=r0, band_rows=rows)
+            m_b = tlf.tune_flat_capacity(p, cfg, margin=2.0)
+            fb = tlf.bin_splats_flat(p, cfg, m_b, band_row0=r0,
+                                     band_rows=rows)
             ref_band = refc[:, :, r0 * th:(r0 + rows) * th, :]
-            C_b, g_b = rpf.l2_render_and_grads_flat(
-                fb, ref_band, 64, cfg, KC, mc_b, params=p,
-                band_row0=r0, band_rows=rows)
+            C_b, g_b = rg.l2_render_and_grads_flat(
+                fb, ref_band, 64, cfg, p, band_row0=r0, band_rows=rows)
             bands.append(C_b)
             g_acc = g_b if g_acc is None else jax.tree.map(
                 jnp.add, g_acc, g_b)

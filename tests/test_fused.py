@@ -1,5 +1,5 @@
-"""Fused L2 train path (single and chunked) vs the reference scan path,
-in interpret mode on CPU."""
+"""The production tile L2 train path -- the plain XLA path and the GPU
+kernel in interpret mode on CPU -- vs the reference scan path."""
 
 import jax
 import jax.numpy as jnp
@@ -8,8 +8,10 @@ import pytest
 
 from gs2d_tpu.config import SplatConfig
 from gs2d_tpu.io.image import synthetic_target
-from gs2d_tpu.ops import render_pallas as rp
+from gs2d_tpu.ops import render_gpu as rg
+from gs2d_tpu.ops import render_tiles as rp
 from gs2d_tpu.ops import tiles as tl
+from gs2d_tpu.ops import tiles_flat as tlf
 from gs2d_tpu.ops.render_jax import render_backward, render_forward
 from gs2d_tpu.train.loop import init_train_state, make_train_step, \
     make_train_step_fused
@@ -26,16 +28,16 @@ def case(rng, n, **kw):
 
 
 class TestFusedKernel:
-    @pytest.mark.parametrize("chunk", [None, 64])
-    def test_matches_scan_path(self, rng, chunk):
-        cfg, p, ref = case(rng, 128)
-        b = tl.bin_splats(p, cfg, 128)
+    @pytest.mark.parametrize("layout", ["dense", "flat"])
+    def test_matches_scan_path(self, rng, layout):
+        cfg, p, ref = case(rng, 128, interpret=True)
         refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-        if chunk is None:
+        if layout == "dense":
+            b = tl.bin_splats(p, cfg, 128)
             C, g = rp.l2_render_and_grads(b, refc, 128, cfg, p)
         else:
-            C, g = rp.l2_render_and_grads_chunked(b, refc, 128, cfg, p,
-                                                  chunk=chunk)
+            b = tlf.bin_splats_flat(p, cfg, tlf.tune_flat_capacity(p, cfg))
+            C, g = rg.l2_render_and_grads_flat(b, refc, 128, cfg, p)
         C1, _ = render_forward(p, cfg)
         g1 = render_backward(p, C1, C1 - jnp.asarray(ref), cfg)
         np.testing.assert_allclose(np.asarray(C), np.asarray(C1), atol=3e-7)
@@ -44,13 +46,16 @@ class TestFusedKernel:
             atol = 1e-4 * max(1.0, np.abs(a).max())
             np.testing.assert_allclose(c, a, atol=atol, err_msg=f)
 
-    def test_train_step_fused_matches_modular(self, rng):
-        """One optimizer step via the fused kernel == via the custom-VJP
+    @pytest.mark.parametrize("layout", ["dense", "flat"])
+    def test_train_step_fused_matches_modular(self, rng, layout):
+        """One optimizer step via the tile step == via the custom-VJP
         scan path (same Adam, same cotangent)."""
         cfg = SplatConfig(width=W, height=H, n_splats=64,
-                          max_splats_per_tile=64)
+                          max_splats_per_tile=64, binning=layout,
+                          interpret=True)
         ref = synthetic_target(H, W)
         state = init_train_state(cfg)
+        cfg = rp.tune_binning(state.params, cfg)
 
         fused = make_train_step_fused(cfg)
         refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
@@ -120,39 +125,38 @@ class TestFusedKernel:
         assert float(aux.mse) < first * 0.7
 
 
-class TestGCache:
-    @pytest.mark.parametrize("binning", ["dense", "resident"])
-    def test_cached_backward_matches(self, rng, binning):
-        """The G-cache replay (alpha_cache=True) computes the SAME math as
-        the re-deriving backward: alpha = G * op is exactly how the
-        forward built alpha, and masked pairs (G == 0) contribute exact
-        zeros to every gradient term. A pure-jnp step-by-step replica of
-        both backward loops is bitwise identical (verified while building
-        this); through two different compiled kernel programs XLA's
-        excess-precision fusion drifts ~1 ulp (the same documented
-        phenomenon as the across-tile_h forward drift), so the
-        whole-kernel assert uses that standard. The forward color is
-        bitwise (same program structure)."""
-        cfg, p, ref = case(rng, 96)
-        cfg = cfg.replace(tile_h=32, binning=binning)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
+class TestTileLayout:
+    @pytest.mark.parametrize("tile", [(8, 128), (16, 16), (4, 32)])
+    def test_to_from_tiles_roundtrip(self, rng, tile):
+        """Tile-major planes and the padded image map one to one, and
+        plane row t holds tile t's pixels in row-major order."""
+        cfg = SplatConfig(width=W, height=H, tile_h=tile[0], tile_w=tile[1])
+        img = jnp.asarray(rng.uniform(
+            0, 1, (cfg.padded_height, cfg.padded_width, 3)), jnp.float32)
+        planes = rg.to_tiles(img, cfg)
+        assert planes.shape == (cfg.n_tiles_y * cfg.n_tiles_x,
+                                tile[0] * tile[1], 3)
+        np.testing.assert_array_equal(
+            np.asarray(rg.from_tiles(planes, cfg, cfg.n_tiles_y)),
+            np.asarray(img))
+        t = cfg.n_tiles_x + 1 if cfg.n_tiles_y > 1 else 0
+        ty, tx = divmod(t, cfg.n_tiles_x)
+        block = np.asarray(img)[ty * tile[0]:(ty + 1) * tile[0],
+                                tx * tile[1]:(tx + 1) * tile[1]]
+        np.testing.assert_array_equal(np.asarray(planes[t]),
+                                      block.reshape(-1, 3))
 
-        def run(alpha_cache):
-            c = cfg.replace(alpha_cache=alpha_cache)
-            if binning == "resident":
-                from gs2d_tpu.ops import render_pallas_resident as rpr
-
-                return rpr.l2_step_resident(p, refc, c, 96)[:2]
-            b = tl.bin_splats(p, c, 96)
-            return rp.l2_render_and_grads(b, refc, 96, c, p)
-
-        (C_c, g_c), (C_u, g_u) = run(True), run(False)
-        np.testing.assert_array_equal(np.asarray(C_c), np.asarray(C_u))
-        for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
-            a = np.asarray(getattr(g_u, f))
-            atol = 1e-5 * max(1.0, np.abs(a).max())
-            np.testing.assert_allclose(
-                np.asarray(getattr(g_c, f)), a, atol=atol, err_msg=f)
+    @pytest.mark.parametrize("row0", [0, 8])
+    def test_tile_pixels(self, row0):
+        """Per-tile pixel coordinates, band offset and the inside mask."""
+        cfg = SplatConfig(width=20, height=12, tile_h=4, tile_w=8)
+        yy, xx, fy, fx, inside = (np.asarray(a) for a in rg.tile_pixels(
+            cfg, jnp.arange(cfg.n_tiles_x)[:, None], row0))
+        assert yy.shape == (cfg.n_tiles_x, 32)
+        np.testing.assert_array_equal(yy[:, :8], row0)
+        np.testing.assert_array_equal(xx[2, :8], np.arange(16, 24))
+        np.testing.assert_array_equal(fx, xx + 0.5)
+        np.testing.assert_array_equal(inside, (yy < 12) & (xx < 20))
 
 
 class TestBatchedFused:
@@ -207,37 +211,17 @@ class TestBatchedScanFitter:
                 np.asarray(getattr(s_it.params, f)), atol=1e-6, err_msg=f)
 
 
-class TestMxuVariant:
-    def test_matches_scan_path_interpret(self, rng):
-        """Experimental MXU formulation: allclose (not bitwise -- d2 comes
-        from a coefficient matmul) to the reference scan path."""
-        from gs2d_tpu.ops.render_pallas_mxu import l2_render_and_grads_mxu
-
-        cfg, p, ref = case(rng, 128)
-        b = tl.bin_splats(p, cfg, 128)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-        C, g = l2_render_and_grads_mxu(b, refc, 128, cfg, chunk=64)
-        C1, _ = render_forward(p, cfg)
-        g1 = render_backward(p, C1, C1 - jnp.asarray(ref), cfg)
-        np.testing.assert_allclose(np.asarray(C), np.asarray(C1), atol=5e-5)
-        for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
-            a, c = np.asarray(getattr(g1, f)), np.asarray(getattr(g, f))
-            atol = 2e-3 * max(1.0, np.abs(a).max())
-            np.testing.assert_allclose(c, a, atol=atol, err_msg=f)
-
-
 class TestChunkedModular:
     def test_forward_backward_chunked_matches_scan(self, rng):
-        """K > 256 routes the modular forward/backward through the chunked
-        kernels (SMEM O(chunk) for any per-tile list length); results must
-        match the scan reference exactly like the unchunked path."""
+        """A deep capacity (K=512, mostly padding slots) through the plain
+        forward/backward matches the scan reference."""
         n = 512
         cfg = SplatConfig(width=W, height=H, n_splats=n)
         s = random_splats(rng, n, W, H)
         p = to_params(s)
         ref = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
 
-        b = tl.bin_splats(p, cfg, 512)          # k=512 -> chunked dispatch
+        b = tl.bin_splats(p, cfg, 512)
         C, T = rp.forward_tiled(b, cfg)
         C1, T1 = render_forward(p, cfg)
         np.testing.assert_allclose(np.asarray(C), np.asarray(C1), atol=3e-7)
@@ -251,9 +235,9 @@ class TestChunkedModular:
             np.testing.assert_allclose(c, a, atol=atol, err_msg=f)
 
     def test_chunked_saturation(self, rng):
-        """Opaque overlapping splats saturate T mid-list; skipped chunks must
-        contribute exact zeros (fresh grads blocks) and the composite must
-        still match the scan path."""
+        """Opaque overlapping splats saturate T mid-list; the plain path's
+        masked slots contribute exact zeros and the composite still matches
+        the scan path."""
         n = 512
         cfg = SplatConfig(width=W, height=H, n_splats=n)
         s = random_splats(rng, n, W, H, opacity_range=(0.9, 1.0))
@@ -277,10 +261,9 @@ class TestChunkedModular:
 
 
 class TestTileHeight:
-    """Production tile-height policy: 32-row tiles (measured sweep,
-    BASELINE.md) must be a pure layout change -- forward equal to ~1 ulp
-    (Mosaic emits different mul/add fusion shapes per block geometry),
-    grads equal up to partition reassociation."""
+    """The tile shape must be a pure layout change -- forward equal to
+    ~1 ulp (different fusion shapes per block geometry), grads equal up to
+    partition reassociation."""
 
     def test_tile_h_equivalence(self, rng):
         cfg0, p, ref = case(rng, 64, max_splats_per_tile=64)
@@ -301,10 +284,13 @@ class TestTileHeight:
                     rtol=1e-3, atol=2e-6, err_msg=f"{f} th={th}")
 
     def test_tune_tile_height(self):
-        cfg = SplatConfig(width=W, height=H, n_splats=8)
-        assert tl.tune_tile_height(cfg).tile_h == tl.PRODUCTION_TILE_H
-        big = SplatConfig(width=3840, height=2160, n_splats=8)
-        assert tl.tune_tile_height(big).tile_h == tl.PRODUCTION_TILE_H
+        """The production tile shape is a power-of-two pixel count (the
+        kernel's block) at every image size."""
+        for w, h in ((W, H), (3840, 2160)):
+            cfg = tl.tune_tile_shape(SplatConfig(width=w, height=h))
+            assert (cfg.tile_h, cfg.tile_w) == tl.PRODUCTION_TILE
+            px = cfg.tile_h * cfg.tile_w
+            assert px & (px - 1) == 0
 
 
 class TestDeadSlotGrads:
@@ -339,15 +325,14 @@ class TestBatchedFlatLayout:
     needs flat at 4K-scale populations; round-4 VERDICT missing item 4)."""
 
     def test_flat_batched_matches_single(self, rng):
-        from gs2d_tpu.ops import render_pallas_flat as rpf
         from gs2d_tpu.parallel.sharded import init_batched_state
         from gs2d_tpu.train.loop import (make_batched_train_step_fused,
                                          make_train_step_fused)
 
         cfg = SplatConfig(width=W, height=H, n_splats=96, binning="flat",
-                          flat_chunk=32)
+                          interpret=True)
         from gs2d_tpu.params import init_params
-        cfg = rpf.tune_flat_config(init_params(cfg), cfg)
+        cfg = tlf.tune_flat_config(init_params(cfg), cfg)
         refs = np.stack([synthetic_target(H, W, seed=s) for s in (0, 2)])
         refs_chw = jnp.stack([rp.pad_ref_chw(jnp.asarray(r), cfg)
                               for r in refs])
@@ -367,14 +352,13 @@ class TestBatchedFlatLayout:
     def test_flat_batched_scan_with_lazy_rebinning(self, rng):
         """Scanned batched fitter carries per-image flat caches; margin=2
         trajectory matches eager margin=0 within the documented drift."""
-        from gs2d_tpu.ops import render_pallas_flat as rpf
         from gs2d_tpu.params import init_params
         from gs2d_tpu.parallel.sharded import init_batched_state
         from gs2d_tpu.train.loop import make_fit_scan_batched
 
         cfg0 = SplatConfig(width=W, height=H, n_splats=96, binning="flat",
-                           flat_chunk=32)
-        cfg0 = rpf.tune_flat_config(init_params(cfg0), cfg0)
+                           interpret=True)
+        cfg0 = tlf.tune_flat_config(init_params(cfg0), cfg0)
         refs = np.stack([synthetic_target(H, W, seed=s) for s in (0, 2)])
         refs_chw = jnp.stack([rp.pad_ref_chw(jnp.asarray(r), cfg0)
                               for r in refs])

@@ -4,8 +4,8 @@ train/loop one_step_flat_cached), in interpret mode on CPU.
 The flat structure (exact-count expansion + one stable sort) is
 param-dependent only through the pair SET; a margined superset stays valid
 while splats drift less than the margin, and superset pairs composite to
-exactly nothing (same argument as the resident lazy path,
-tests/test_resident.py::TestLazyRebinning). The per-row parameter
+exactly nothing (tests/test_resident.py::TestLazyRebinning pins the
+tripwire itself). The per-row parameter
 pregather (tiles_flat.pregather_rows) is re-run from the live params every
 step, so cached-structure renders see current parameters.
 """
@@ -16,8 +16,7 @@ import numpy as np
 
 from gs2d_tpu.config import SplatConfig
 from gs2d_tpu.io.image import synthetic_target
-from gs2d_tpu.ops import render_pallas as rp
-from gs2d_tpu.ops import render_pallas_flat as rpf
+from gs2d_tpu.ops import render_tiles as rt
 from gs2d_tpu.ops import tiles_flat as tlf
 from tests.helpers import random_splats, to_params
 
@@ -25,10 +24,11 @@ H, W = 64, 128
 
 
 def case(rng, n, **kw):
-    cfg = SplatConfig(width=W, height=H, n_splats=n, binning="flat", **kw)
+    cfg = SplatConfig(width=W, height=H, n_splats=n, binning="flat",
+                      interpret=True, **kw)
     s = random_splats(rng, n, W, H)
     p = to_params(s)
-    cfg = rpf.tune_flat_config(p, cfg)
+    cfg = tlf.tune_flat_config(p, cfg)
     ref = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
     return cfg, p, ref
 
@@ -38,14 +38,8 @@ class TestFlatLazyRebinning:
         """Every exact flat pair appears in the margined layout, and each
         tile's run keeps ascending splat order (the compositing contract)."""
         cfg, p, _ = case(rng, 96, tile_h=32)
-        cfg_m = cfg.replace(flat_capacity=cfg.flat_capacity * 2,
-                            flat_max_chunks=cfg.flat_max_chunks * 2)
-        exact = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity,
-                                    kc=cfg.flat_chunk,
-                                    max_chunks=cfg.flat_max_chunks)
-        marg = tlf.bin_splats_flat(p, cfg_m, cfg_m.flat_capacity,
-                                   kc=cfg_m.flat_chunk,
-                                   max_chunks=cfg_m.flat_max_chunks,
+        exact = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity)
+        marg = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity * 2,
                                    margin=4.0)
         assert int(exact.n_dropped) == 0 and int(marg.n_dropped) == 0
         e_ids, m_ids = np.asarray(exact.ids), np.asarray(marg.ids)
@@ -60,13 +54,8 @@ class TestFlatLazyRebinning:
     def test_ids_only_plus_pregather_matches(self, rng):
         """ids_only binning + pregather_rows == the one-shot binning."""
         cfg, p, _ = case(rng, 64, tile_h=32)
-        full = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity,
-                                   kc=cfg.flat_chunk,
-                                   max_chunks=cfg.flat_max_chunks)
-        ids = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity,
-                                  kc=cfg.flat_chunk,
-                                  max_chunks=cfg.flat_max_chunks,
-                                  ids_only=True)
+        full = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity)
+        ids = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, ids_only=True)
         np.testing.assert_array_equal(np.asarray(ids.ids),
                                       np.asarray(full.ids))
         rows = tlf.pregather_rows(ids.ids, p, cfg)
@@ -102,14 +91,11 @@ class TestFlatLazyRebinning:
         # 32-slot tripwire grid, the centered big splats' exact footprints
         # (~24 rows x 2 cols = 48 tiles) overflow the enumeration and
         # covered == False on a population that did not move at all --
-        # i.e. the lazy cache would rebin every step. (The capacity arm is
-        # not assertable at this scale: chunk-rounding alone gives the
-        # margin-0 tuner enough headroom for the margined superset.)
+        # i.e. the lazy cache would rebin every step.
         assert not bool(tl.pairs_covered_by(p, p, cfg, cfg.rebin_margin))
 
-        cfg = rpf.tune_flat_config(p, cfg)
-        b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=cfg.flat_chunk,
-                                max_chunks=cfg.flat_max_chunks,
+        cfg = tlf.tune_flat_config(p, cfg)
+        b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity,
                                 margin=cfg.rebin_margin)
         assert int(b.n_dropped) == 0, "margined superset overflowed capacity"
         # The slot grid covers the margined footprint: the tripwire accepts
@@ -123,11 +109,11 @@ class TestFlatLazyRebinning:
         from gs2d_tpu.train.loop import init_train_state, make_fit_scan_fused
 
         cfg = SplatConfig(width=W, height=H, n_splats=64, binning="flat",
-                          tile_h=32)
+                          tile_h=32, interpret=True)
         state0 = init_train_state(cfg)
-        cfg = rpf.tune_flat_config(state0.params, cfg)
+        cfg = tlf.tune_flat_config(state0.params, cfg)
         ref = synthetic_target(H, W)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
+        refc = rt.pad_ref_chw(jnp.asarray(ref), cfg)
         n_iters = 12
 
         s_base, aux_base = make_fit_scan_fused(cfg)(state0, refc, n_iters)

@@ -3,7 +3,7 @@
 Separate JAX processes form one cluster via ``jax.distributed.initialize``
 with gloo CPU collectives -- the closest an unnetworked single host gets
 to a multi-host pod. The worker (tests/_mp_worker.py) runs the production
-sharded pallas step over a process-spanning (tile=2, splat=2) mesh
+sharded tile step over a process-spanning (tile=2, splat=2) mesh
 (cross-process psum/all_gather/ppermute), checks it against the
 single-device fused step, and round-trips the process-spanning sharded
 state through the orbax checkpointer.

@@ -180,7 +180,7 @@ def test_tripwire_soundness_with_cull_fuzz(data, ops, op_mul, drifts):
     if not covered:
         return  # tripping forces a rebin: always safe
     got = jax.jit(lambda q: tl.bin_splats(
-        q, cfg, 64, max_tiles_per_splat=64, ids_only=True,
+        q, cfg, 64, max_tiles_per_splat=64,
         margin=margin))(p_old)
     ids = np.asarray(got.ids)
     count = np.asarray(got.count)
@@ -209,11 +209,14 @@ def test_render_delta_bounded():
     pre-transmittance)."""
     import jax.numpy as jnp
 
-    from gs2d_tpu.ops import render_pallas as rp
+    from gs2d_tpu.ops import render_gpu as rg
+    from gs2d_tpu.ops import render_tiles as rp
+    from gs2d_tpu.ops import tiles_flat as tlf
 
     rng = np.random.default_rng(7)
     n = 64
-    cfg = SplatConfig(width=128, height=96, n_splats=n, tile_h=32)
+    cfg = SplatConfig(width=128, height=96, n_splats=n, tile_h=32,
+                      interpret=True)
     p = GaussianParams(
         pos=rng.uniform([0, 0], [128, 96], (n, 2)).astype(np.float32),
         sx=rng.uniform(2, 10, n).astype(np.float32),
@@ -224,17 +227,23 @@ def test_render_delta_bounded():
     ref = np.full((96, 128, 3), 0.25, np.float32)
     refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
 
-    def render(c):
-        b = tl.bin_splats(p, c, 64)
-        C, _ = rp.l2_render_and_grads(b, refc, n, c, p)
+    def render(c, layout):
+        if layout == "dense":
+            b = tl.bin_splats(p, c, 64)
+            C, _ = rp.l2_render_and_grads(b, refc, n, c, p)
+        else:
+            b = tlf.bin_splats_flat(p, c, tlf.tune_flat_capacity(p, c))
+            C, _ = rg.l2_render_and_grads_flat(b, refc, n, c, p)
         return np.asarray(C)
 
-    base = render(cfg)
-    culled = render(cfg.replace(opacity_cull_alpha=ALPHA))
-    # Bound: dropped pairs per pixel is small on this density; 8 pairs'
-    # worth of threshold absorbs transmittance-chain amplification.
-    assert np.abs(culled - base).max() < 8 * ALPHA
-    assert np.abs(culled - base).max() > 0  # the cull actually dropped work
+    for layout in ("dense", "flat"):
+        base = render(cfg, layout)
+        culled = render(cfg.replace(opacity_cull_alpha=ALPHA), layout)
+        # Bound: dropped pairs per pixel is small on this density; 8
+        # pairs' worth of threshold absorbs transmittance-chain
+        # amplification.
+        assert np.abs(culled - base).max() < 8 * ALPHA
+        assert np.abs(culled - base).max() > 0  # the cull dropped work
 
 
 def test_counts_shrink_on_low_opacity():

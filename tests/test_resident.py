@@ -1,92 +1,27 @@
-"""Resident-table fused kernel (small-N path) vs the dense fused path and
-the reference scan path, in interpret mode on CPU.
-
-The resident variant must be numerically identical to the dense fused
-kernel: the shared per-splat math is reused through the table view, the
-composite order is the same, and the one-hot MXU expansion is exact (a
-splat appears at most once per tile list, so no duplicate-index sums).
-"""
+"""Lazy rebinning: the exact coverage tripwire (tiles.pairs_covered_by),
+margined superset binnings, and the cached-binning scan fitter, on the GPU
+kernel in interpret mode on CPU."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from gs2d_tpu.config import SplatConfig
 from gs2d_tpu.io.image import synthetic_target
-from gs2d_tpu.ops import render_pallas as rp
-from gs2d_tpu.ops import render_pallas_resident as rpr
+from gs2d_tpu.ops import render_gpu as rg
+from gs2d_tpu.ops import render_tiles as rt
 from gs2d_tpu.ops import tiles as tl
-from gs2d_tpu.ops.render_jax import render_backward, render_forward
+from gs2d_tpu.ops import tiles_flat as tlf
 from tests.helpers import random_splats, to_params
 
 H, W = 48, 64
 
 
 def case(rng, n, **kw):
-    cfg = SplatConfig(width=W, height=H, n_splats=n, **kw)
+    cfg = SplatConfig(width=W, height=H, n_splats=n, interpret=True, **kw)
     s = random_splats(rng, n, W, H)
     ref = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
     return cfg, to_params(s), ref
-
-
-class TestResidentKernel:
-    # 130: N not a multiple of 128 exercises the padded one-hot lanes; 128:
-    # exact fit (pad id N maps to a real lane >= N, sliced away).
-    @pytest.mark.parametrize("n", [128, 130])
-    def test_matches_dense_fused(self, rng, n):
-        cfg, p, ref = case(rng, n, max_splats_per_tile=64)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-        b = tl.bin_splats(p, cfg, 64)
-        C_d, g_d = rp.l2_render_and_grads(b, refc, n, cfg, p)
-        C_r, g_r, nd = rpr.l2_step_resident(p, refc, cfg, 64)
-        np.testing.assert_array_equal(np.asarray(C_r), np.asarray(C_d))
-        assert int(nd) == int(b.n_dropped)
-        for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(g_r, f)), np.asarray(getattr(g_d, f)),
-                err_msg=f)
-
-    def test_matches_scan_path(self, rng):
-        cfg, p, ref = case(rng, 128)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-        C, g = rpr.l2_render_and_grads_resident(
-            tl.bin_splats(p, cfg, 128, ids_only=True),
-            rpr.resident_table(p, cfg), refc, 128, cfg)
-        C1, _ = render_forward(p, cfg)
-        g1 = render_backward(p, C1, C1 - jnp.asarray(ref), cfg)
-        np.testing.assert_allclose(np.asarray(C), np.asarray(C1), atol=3e-7)
-        for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
-            a, c = np.asarray(getattr(g1, f)), np.asarray(getattr(g, f))
-            atol = 1e-4 * max(1.0, np.abs(a).max())
-            np.testing.assert_allclose(c, a, atol=atol, err_msg=f)
-
-    def test_ids_only_binning_matches(self, rng):
-        cfg, p, _ = case(rng, 96)
-        full = tl.bin_splats(p, cfg, 64)
-        ids = tl.bin_splats(p, cfg, 64, ids_only=True)
-        np.testing.assert_array_equal(np.asarray(ids.ids), np.asarray(full.ids))
-        np.testing.assert_array_equal(np.asarray(ids.count),
-                                      np.asarray(full.count))
-        assert int(ids.n_dropped) == int(full.n_dropped)
-
-    def test_tile_h32_synthetic_fit_step(self, rng):
-        """A realistic production shape: 32-row tiles, synthetic target."""
-        cfg = SplatConfig(width=W, height=H, n_splats=64,
-                          max_splats_per_tile=64, tile_h=32)
-        from gs2d_tpu.train.loop import init_train_state
-
-        state = init_train_state(cfg)
-        ref = synthetic_target(H, W)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-        b = tl.bin_splats(state.params, cfg, 64)
-        C_d, g_d = rp.l2_render_and_grads(b, refc, 64, cfg, state.params)
-        C_r, g_r, _ = rpr.l2_step_resident(state.params, refc, cfg, 64)
-        np.testing.assert_array_equal(np.asarray(C_r), np.asarray(C_d))
-        for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(g_r, f)), np.asarray(getattr(g_d, f)),
-                err_msg=f)
 
 
 class TestLazyRebinning:
@@ -130,8 +65,8 @@ class TestLazyRebinning:
     def test_margined_binning_is_superset(self, rng):
         """Every exact pair appears in the margined lists, in order."""
         cfg, p, _ = case(rng, 96, tile_h=32)
-        exact = tl.bin_splats(p, cfg, 96, ids_only=True)
-        margined = tl.bin_splats(p, cfg, 96, ids_only=True, margin=4.0)
+        exact = tl.bin_splats(p, cfg, 96)
+        margined = tl.bin_splats(p, cfg, 96, margin=4.0)
         e_ids, e_cnt = np.asarray(exact.ids), np.asarray(exact.count)
         m_ids, m_cnt = np.asarray(margined.ids), np.asarray(margined.count)
         for t in range(e_ids.shape[0]):
@@ -144,22 +79,21 @@ class TestLazyRebinning:
         """Superset pairs contribute exactly nothing mathematically (a
         numpy replay of the composite over both lists is bitwise equal);
         through the compiled kernel, inserting pairs shifts later splats
-        across unrolled-loop boundaries where XLA's excess-precision
-        rounding may move by <= 1 ulp (same phenomenon as the documented
-        ~1 ulp forward drift across tile_h). Assert to that standard."""
+        through the compiled kernel, inserting pairs may move the result by
+        <= 1 ulp of fma-contraction noise. Assert to that standard."""
         cfg, p, ref = case(rng, 96, tile_h=32)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
-        table = rpr.resident_table(p, cfg)
+        refc = rt.pad_ref_chw(jnp.asarray(ref), cfg)
+        m = tlf.tune_flat_capacity(p, cfg, bin_margin=4.0)
 
         @jax.jit
-        def both(p, table, refc):
-            exact = tl.bin_splats(p, cfg, 96, ids_only=True)
-            marg = tl.bin_splats(p, cfg, 96, ids_only=True, margin=4.0)
-            a = rpr.l2_render_and_grads_resident(exact, table, refc, 96, cfg)
-            b = rpr.l2_render_and_grads_resident(marg, table, refc, 96, cfg)
+        def both(p, refc):
+            exact = tlf.bin_splats_flat(p, cfg, m)
+            marg = tlf.bin_splats_flat(p, cfg, m, margin=4.0)
+            a = rg.l2_render_and_grads_flat(exact, refc, 96, cfg, p)
+            b = rg.l2_render_and_grads_flat(marg, refc, 96, cfg, p)
             return a, b
 
-        (C_e, g_e), (C_m, g_m) = both(p, table, refc)
+        (C_e, g_e), (C_m, g_m) = both(p, refc)
         np.testing.assert_allclose(np.asarray(C_m), np.asarray(C_e),
                                    atol=5e-7)
         for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
@@ -174,14 +108,16 @@ class TestLazyRebinning:
         same-program test above), while hitting the cache on most steps."""
         from gs2d_tpu.train.loop import init_train_state, make_fit_scan_fused
 
-        cfg = SplatConfig(width=W, height=H, n_splats=64,
-                          max_splats_per_tile=64, tile_h=32,
-                          binning="resident")
+        cfg = SplatConfig(width=W, height=H, n_splats=64, tile_h=32,
+                          binning="flat", interpret=True)
         ref = synthetic_target(H, W)
-        refc = rp.pad_ref_chw(jnp.asarray(ref), cfg)
+        refc = rt.pad_ref_chw(jnp.asarray(ref), cfg)
         n_iters = 12
 
         state0 = init_train_state(cfg)
+        cfg = tlf.tune_flat_config(state0.params,
+                                   cfg.replace(rebin_margin=4.0))
+        cfg = cfg.replace(rebin_margin=0.0)
         s_base, aux_base = make_fit_scan_fused(cfg)(state0, refc, n_iters)
 
         cfg_lazy = cfg.replace(rebin_margin=4.0)

@@ -13,6 +13,7 @@ import pytest
 from gs2d_tpu.config import SplatConfig
 from gs2d_tpu.io.image import synthetic_target
 from gs2d_tpu.ops.render_jax import render_forward
+from gs2d_tpu.ops.render_tiles import tune_binning
 from gs2d_tpu.params import init_params
 from gs2d_tpu.parallel.mesh import make_mesh
 from gs2d_tpu.parallel.sharded import (
@@ -181,25 +182,28 @@ class TestShardedPallasRenderer:
         {"tile": 2}, {"tile": 4}, {"tile": 2, "splat": 2},
         {"data": 2, "tile": 2, "splat": 2},
     ], ids=lambda a: "x".join(f"{k}{v}" for k, v in a.items()))
-    def test_pallas_matches_scan(self, axes):
-        """Sharded Pallas rasterization == the scan path on the same mesh
-        (interpret-mode kernels inside shard_map), for splat, tile, and
-        combined sharding."""
-        cfg = cfg_for(32, min_throughput=0.0, max_splats_per_tile=32)
+    @pytest.mark.parametrize("layout", ["dense", "flat"])
+    def test_pallas_matches_scan(self, axes, layout):
+        """Sharded tile rasterization (the plain path, and the GPU kernel in
+        interpret mode, inside shard_map) == the scan path on the same
+        mesh, for splat, tile, and combined sharding."""
+        cfg = cfg_for(32, min_throughput=0.0, max_splats_per_tile=32,
+                      binning=layout, interpret=True)
+        cfg = tune_binning(init_params(cfg), cfg, n_bands=axes.get("tile", 1))
         ref = jnp.asarray(synthetic_target(H, W))
         mesh = make_mesh(**axes)
         batch = axes.get("data", 1)
         refs = pad_ref_batch(jnp.broadcast_to(ref[None], (batch, H, W, 3)), cfg)
         out = {}
-        for renderer in ("scan", "pallas"):
+        for renderer in ("scan", "tiles"):
             step, sh = make_sharded_train_step(cfg, mesh, renderer=renderer)
             state = jax.device_put(init_batched_state(cfg, batch), sh["state"])
             r = jax.device_put(refs, sh["ref"])
             new_state, aux = step(state, r)
             out[renderer] = (new_state, float(aux.mse[0]))
-        assert np.isclose(out["scan"][1], out["pallas"][1], rtol=1e-5)
+        assert np.isclose(out["scan"][1], out["tiles"][1], rtol=1e-5)
         for x, y in zip(jax.tree.leaves(out["scan"][0].params),
-                        jax.tree.leaves(out["pallas"][0].params)):
+                        jax.tree.leaves(out["tiles"][0].params)):
             np.testing.assert_allclose(np.asarray(x), np.asarray(y),
                                        rtol=1e-4, atol=2e-3)
 
@@ -207,20 +211,17 @@ class TestShardedPallasRenderer:
         {"splat": 2}, {"tile": 2}, {"tile": 2, "splat": 2},
     ], ids=lambda a: "x".join(f"{k}{v}" for k, v in a.items()))
     def test_flat_binning_matches_scan(self, axes):
-        """Sharded pallas with the FLAT block-aligned binning == the scan
-        path on the same mesh (each device flat-bins its own band; with
-        splat shards the monoid combine sits between forward_flat and
-        backward_flat)."""
-        from gs2d_tpu.ops import render_pallas_flat as rpf
-
-        cfg = cfg_for(32, min_throughput=0.0, binning="flat", flat_chunk=64)
-        cfg_flat = rpf.tune_flat_config(
+        """Sharded kernel on the FLAT pair binning == the scan path on the
+        same mesh (each device flat-bins its own band; with splat shards
+        the monoid combine sits between forward_flat and backward_flat)."""
+        cfg = cfg_for(32, min_throughput=0.0, binning="flat", interpret=True)
+        cfg_flat = tune_binning(
             init_params(cfg), cfg, n_bands=axes.get("tile", 1))
         ref = jnp.asarray(synthetic_target(H, W))
         mesh = make_mesh(**axes)
         refs = pad_ref_batch(ref[None], cfg_flat)
         out = {}
-        for renderer in ("scan", "pallas"):
+        for renderer in ("scan", "tiles"):
             step, sh = make_sharded_train_step(cfg_flat, mesh,
                                                renderer=renderer)
             state = jax.device_put(init_batched_state(cfg_flat, 1),
@@ -228,20 +229,18 @@ class TestShardedPallasRenderer:
             r = jax.device_put(refs, sh["ref"])
             new_state, aux = step(state, r)
             out[renderer] = (new_state, float(aux.mse[0]))
-        assert np.isclose(out["scan"][1], out["pallas"][1], rtol=1e-5)
+        assert np.isclose(out["scan"][1], out["tiles"][1], rtol=1e-5)
         for x, y in zip(jax.tree.leaves(out["scan"][0].params),
-                        jax.tree.leaves(out["pallas"][0].params)):
+                        jax.tree.leaves(out["tiles"][0].params)):
             np.testing.assert_allclose(np.asarray(x), np.asarray(y),
                                        rtol=1e-4, atol=2e-3)
 
     @pytest.mark.parametrize("axes", [{"tile": 2}, {"tile": 2, "splat": 2}])
     def test_flat_overlap_chunks_equivalent(self, axes):
         """Chunked backward + per-chunk grad psum under the flat layout ==
-        the single-psum form (sub-band id masking drops garbage blocks)."""
-        from gs2d_tpu.ops import render_pallas_flat as rpf
-
-        cfg = cfg_for(32, min_throughput=0.0, binning="flat", flat_chunk=64)
-        cfg_flat = rpf.tune_flat_config(
+        the single-psum form (sub-band id masking drops unwritten rows)."""
+        cfg = cfg_for(32, min_throughput=0.0, binning="flat", interpret=True)
+        cfg_flat = tune_binning(
             init_params(cfg), cfg, n_bands=axes["tile"])
         ref = jnp.asarray(synthetic_target(H, W))
         mesh = make_mesh(**axes)
@@ -249,7 +248,7 @@ class TestShardedPallasRenderer:
         out = {}
         for oc in (1, 2):  # band is 2 tile rows on this mesh
             step, sh = make_sharded_train_step(cfg_flat, mesh,
-                                               renderer="pallas",
+                                               renderer="tiles",
                                                overlap_chunks=oc)
             state = jax.device_put(init_batched_state(cfg_flat, 1),
                                    sh["state"])
@@ -265,15 +264,16 @@ class TestShardedPallasRenderer:
     @pytest.mark.parametrize("axes", [{"tile": 2}, {"tile": 2, "splat": 2}])
     def test_overlap_chunks_equivalent(self, axes):
         """Chunked backward + per-chunk grad psum (the overlapped all-reduce
-        structure) == the single-psum form, for both the fused (splat=1)
-        and split (splat>1) pallas paths."""
-        cfg = cfg_for(32, min_throughput=0.0, max_splats_per_tile=32)
+        structure) == the single-psum form, for both the L2 (splat=1) and
+        split (splat>1) plain tile paths."""
+        cfg = cfg_for(32, min_throughput=0.0, max_splats_per_tile=32,
+                      binning="dense")
         ref = jnp.asarray(synthetic_target(H, W))
         mesh = make_mesh(**axes)
         refs = pad_ref_batch(ref[None], cfg)
         out = {}
         for oc in (1, 2):  # band is 2 tile rows on this mesh
-            step, sh = make_sharded_train_step(cfg, mesh, renderer="pallas",
+            step, sh = make_sharded_train_step(cfg, mesh, renderer="tiles",
                                                overlap_chunks=oc)
             state = jax.device_put(init_batched_state(cfg, 1), sh["state"])
             r = jax.device_put(refs, sh["ref"])
@@ -286,75 +286,23 @@ class TestShardedPallasRenderer:
                                        rtol=1e-5, atol=1e-4)
 
 
-class TestShardedResidentRenderer:
-    """Sharded pallas with the RESIDENT layout (per-shard SMEM table,
-    in-kernel one-hot gradient expansion) == the scan path on the same
-    mesh. With splat shards the monoid combine sits between
-    forward_resident and backward_resident."""
-
-    @pytest.mark.parametrize("axes", [
-        {"splat": 1}, {"splat": 2}, {"tile": 2}, {"tile": 2, "splat": 2},
-    ], ids=lambda a: "x".join(f"{k}{v}" for k, v in a.items()))
-    def test_resident_matches_scan(self, axes):
-        cfg = cfg_for(32, min_throughput=0.0, max_splats_per_tile=32,
-                      binning="resident")
-        ref = jnp.asarray(synthetic_target(H, W))
-        mesh = make_mesh(**axes)
-        refs = pad_ref_batch(ref[None], cfg)
-        out = {}
-        for renderer in ("scan", "pallas"):
-            step, sh = make_sharded_train_step(cfg, mesh, renderer=renderer)
-            state = jax.device_put(init_batched_state(cfg, 1), sh["state"])
-            r = jax.device_put(refs, sh["ref"])
-            new_state, aux = step(state, r)
-            out[renderer] = (new_state, float(aux.mse[0]))
-        assert np.isclose(out["scan"][1], out["pallas"][1], rtol=1e-5)
-        for x, y in zip(jax.tree.leaves(out["scan"][0].params),
-                        jax.tree.leaves(out["pallas"][0].params)):
-            np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                       rtol=1e-4, atol=2e-3)
-
-    def test_resident_overlap_chunks(self):
-        """Chunked backward (overlapped grad psum) == single-chunk, on the
-        resident path."""
-        cfg = cfg_for(32, min_throughput=0.0, max_splats_per_tile=32,
-                      binning="resident")
-        ref = jnp.asarray(synthetic_target(H, W))
-        mesh = make_mesh(tile=2, splat=2)
-        refs = pad_ref_batch(ref[None], cfg)
-        out = {}
-        for chunks in (1, 2):
-            step, sh = make_sharded_train_step(cfg, mesh, renderer="pallas",
-                                               overlap_chunks=chunks)
-            state = jax.device_put(init_batched_state(cfg, 1), sh["state"])
-            r = jax.device_put(refs, sh["ref"])
-            new_state, aux = step(state, r)
-            out[chunks] = (new_state, float(aux.mse[0]))
-        assert np.isclose(out[1][1], out[2][1], rtol=1e-6)
-        for x, y in zip(jax.tree.leaves(out[1][0].params),
-                        jax.tree.leaves(out[2][0].params)):
-            np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                       rtol=1e-5, atol=1e-4)
-
-
 class TestShardedSaturatingWalk:
     def test_flat_banded_saturating_matches_scan(self, monkeypatch):
-        """The in-loop saturating walk under tile-axis band sharding
-        (production gates it to n_splats >= 8192; forced on here). Only
-        tile sharding: with splat shards the threshold is auto-disabled,
-        which makes the walk a structural no-op."""
-        from gs2d_tpu.ops import render_pallas as rp
-        from gs2d_tpu.ops import render_pallas_flat as rpf
+        """The kernel's saturation exit under tile-axis band sharding, at a
+        check after every pair. Only tile sharding: with splat shards the
+        threshold is auto-disabled, which makes the exit a structural
+        no-op."""
+        from gs2d_tpu.ops import render_gpu as rg
 
-        monkeypatch.setattr(rp, "SAT_WALK_THRESHOLD", 1)
+        monkeypatch.setattr(rg, "SAT_CHECK_EVERY", 1)
         # Opaque population so bands actually saturate mid-list.
-        cfg = cfg_for(48, binning="flat", flat_chunk=64)
-        cfg_flat = rpf.tune_flat_config(init_params(cfg), cfg, n_bands=2)
+        cfg = cfg_for(48, binning="flat", interpret=True)
+        cfg_flat = tune_binning(init_params(cfg), cfg, n_bands=2)
         ref = jnp.asarray(synthetic_target(H, W))
         mesh = make_mesh(tile=2)
         refs = pad_ref_batch(ref[None], cfg_flat)
         out = {}
-        for renderer in ("scan", "pallas"):
+        for renderer in ("scan", "tiles"):
             step, sh = make_sharded_train_step(cfg_flat, mesh,
                                                renderer=renderer)
             state = jax.device_put(init_batched_state(cfg_flat, 1),
@@ -362,9 +310,9 @@ class TestShardedSaturatingWalk:
             r = jax.device_put(refs, sh["ref"])
             new_state, aux = step(state, r)
             out[renderer] = (new_state, float(aux.mse[0]))
-        assert np.isclose(out["scan"][1], out["pallas"][1], rtol=1e-5)
+        assert np.isclose(out["scan"][1], out["tiles"][1], rtol=1e-5)
         for x, y in zip(jax.tree.leaves(out["scan"][0].params),
-                        jax.tree.leaves(out["pallas"][0].params)):
+                        jax.tree.leaves(out["tiles"][0].params)):
             np.testing.assert_allclose(np.asarray(x), np.asarray(y),
                                        rtol=1e-4, atol=2e-3)
 
@@ -401,33 +349,29 @@ class TestScannedShardedFitter:
                 rtol=1e-4, atol=2e-2, err_msg=f)
 
     @pytest.mark.parametrize("layout,margin", [
-        ("dense", 0.0), ("resident", 2.0), ("flat", 2.0)])
+        ("dense", 0.0), ("flat", 0.0), ("flat", 2.0)])
     def test_pallas_layouts_and_lazy_rebinning(self, layout, margin):
-        """Scanned pallas fitter on a (1,2,2) mesh == the eager per-step
-        sharded pallas step; with rebin_margin > 0 the cached binning is
+        """Scanned tile fitter on a (1,2,2) mesh == the eager per-step
+        sharded tile step; with rebin_margin > 0 the cached binning is
         carried across scan iterations per device band."""
         from gs2d_tpu.parallel.sharded import (make_fit_scan_sharded,
                                                make_sharded_train_step)
 
         mesh = make_mesh(data=1, tile=2, splat=2)
         cfg = cfg_for(min_throughput=0.0, max_splats_per_tile=64,
-                      binning=layout, rebin_margin=margin)
-        if layout == "flat":
-            from gs2d_tpu.ops.render_pallas_flat import tune_flat_config
-
-            cfg = cfg.replace(flat_chunk=32)
-            cfg = tune_flat_config(init_params(cfg), cfg, n_bands=2)
+                      binning=layout, rebin_margin=margin, interpret=True)
+        cfg = tune_binning(init_params(cfg), cfg, n_bands=2)
         ref = jnp.asarray(synthetic_target(H, W))
         refs = jnp.broadcast_to(ref[None], (1, H, W, 3))
 
         step, sh = make_sharded_train_step(
-            cfg.replace(rebin_margin=0.0), mesh, renderer="pallas")
+            cfg.replace(rebin_margin=0.0), mesh, renderer="tiles")
         st_ref = jax.device_put(init_batched_state(cfg, 1), sh["state"])
         refs_p = jax.device_put(pad_ref_batch(refs, cfg), sh["ref"])
         for _ in range(3):
             st_ref, aux = step(st_ref, refs_p)
 
-        fit_k, sh2 = make_fit_scan_sharded(cfg, mesh, renderer="pallas")
+        fit_k, sh2 = make_fit_scan_sharded(cfg, mesh, renderer="tiles")
         state = jax.device_put(init_batched_state(cfg, 1), sh2["state"])
         state, auxes = fit_k(state, refs_p, 3)
         np.testing.assert_allclose(
@@ -446,12 +390,12 @@ class TestScannedShardedFitter:
         from gs2d_tpu.parallel.sharded import make_fit_scan_sharded
 
         mesh = make_mesh(tile=2)
-        cfg = cfg_for(min_throughput=0.0, max_splats_per_tile=64,
-                      binning="resident", rebin_margin=0.5,
-                      learning_rate=3.0)
+        cfg = cfg_for(min_throughput=0.0, binning="flat", interpret=True,
+                      rebin_margin=0.5, learning_rate=3.0)
+        cfg = tune_binning(init_params(cfg), cfg, n_bands=2)
         ref = jnp.asarray(synthetic_target(H, W))
         refs = jnp.broadcast_to(ref[None], (1, H, W, 3))
-        fit_k, sh = make_fit_scan_sharded(cfg, mesh, renderer="pallas")
+        fit_k, sh = make_fit_scan_sharded(cfg, mesh, renderer="tiles")
         state = jax.device_put(init_batched_state(cfg, 1), sh["state"])
         refs_p = jax.device_put(pad_ref_batch(refs, cfg), sh["ref"])
         state, auxes = fit_k(state, refs_p, 4)
@@ -460,7 +404,7 @@ class TestScannedShardedFitter:
         assert reb[1:].sum() >= 1, "lr=3.0 moves splats past 0.5px margin"
         # eager reference trajectory
         cfg0 = cfg.replace(rebin_margin=0.0)
-        fit_k0, sh0 = make_fit_scan_sharded(cfg0, mesh, renderer="pallas")
+        fit_k0, sh0 = make_fit_scan_sharded(cfg0, mesh, renderer="tiles")
         st0 = jax.device_put(init_batched_state(cfg0, 1), sh0["state"])
         st0, _ = fit_k0(st0, refs_p, 4)
         np.testing.assert_allclose(
@@ -474,13 +418,13 @@ class TestScannedShardedFitter:
         from gs2d_tpu.train.densify import live_mask
 
         mesh = make_mesh(data=2, tile=2, splat=2)
-        cfg = cfg_for(min_throughput=0.0, max_splats_per_tile=64,
-                      binning="resident", rebin_margin=2.0)
+        cfg = cfg_for(min_throughput=0.0, binning="flat", interpret=True,
+                      rebin_margin=2.0)
         ref = jnp.asarray(synthetic_target(H, W))
         refs = jnp.broadcast_to(ref[None], (2, H, W, 3))
         state, hist = fit_sharded(
             refs, cfg, mesh, iterations=8, log_every=4, log_fn=None,
-            renderer="pallas", scan_chunk=3, densify_every=4)
+            renderer="tiles", scan_chunk=3, densify_every=4)
         assert np.isfinite(np.asarray(state.params.pos)).all()
         assert state.params.pos.shape[1] == cfg.n_splats  # static capacity
         assert int(live_mask(jax.tree.map(
@@ -498,24 +442,25 @@ class TestShardedCheckpointing:
         from gs2d_tpu.parallel.sharded import init_batched_state
 
         mesh = make_mesh(tile=2, splat=2)
-        cfg = cfg_for(min_throughput=0.0, max_splats_per_tile=64,
-                      binning="resident", rebin_margin=2.0)
+        cfg = cfg_for(min_throughput=0.0, binning="flat", interpret=True,
+                      rebin_margin=2.0)
+        cfg = tune_binning(init_params(cfg), cfg, n_bands=2)
         ref = jnp.asarray(synthetic_target(H, W))
         refs = jnp.broadcast_to(ref[None], (1, H, W, 3))
 
         full, _ = fit_sharded(refs, cfg, mesh, iterations=6, log_fn=None,
-                              renderer="pallas", scan_chunk=3)
+                              renderer="tiles", scan_chunk=3)
 
         ck = Checkpointer(str(tmp_path / "ck"))
         half, _ = fit_sharded(
             refs, cfg, mesh, iterations=3, log_fn=None,
-            renderer="pallas", scan_chunk=3,
+            renderer="tiles", scan_chunk=3,
             checkpoint_every=3, checkpoint_fn=lambda s, it: ck.save(it, s))
         step, restored = ck.restore_latest(init_batched_state(cfg, 1))
         assert step == 3
         resumed, _ = fit_sharded(refs, cfg, mesh, iterations=3,
                                  state=restored, log_fn=None,
-                                 renderer="pallas", scan_chunk=3)
+                                 renderer="tiles", scan_chunk=3)
         for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
             np.testing.assert_array_equal(
                 np.asarray(getattr(resumed.params, f)),

@@ -111,9 +111,9 @@ class TestSsimTraining:
 
 
 class TestSsimProductionKernels:
-    """The mixed objective through production_render (dense / flat /
-    resident Pallas kernels with an arbitrary autodiffed cotangent) must
-    match the scan-path custom VJP."""
+    """The mixed objective through production_render (the plain path and
+    the GPU kernel in interpret mode, with an arbitrary autodiffed
+    cotangent) must match the scan-path custom VJP."""
 
     def _grads(self, render_fn, p, ref, cfg):
         return jax.grad(
@@ -121,7 +121,7 @@ class TestSsimProductionKernels:
 
     def _check(self, cfg, rng):
         from gs2d_tpu.ops.render_jax import render as render_scan
-        from gs2d_tpu.ops.render_pallas_flat import production_render
+        from gs2d_tpu.ops.render_tiles import production_render
         from gs2d_tpu.params import init_params
 
         ref = jnp.asarray(synthetic_target(cfg.height, cfg.width))
@@ -140,16 +140,21 @@ class TestSsimProductionKernels:
                                 tile_h=32), rng)
 
     def test_resident(self, rng):
-        self._check(SplatConfig(width=64, height=48, n_splats=32,
-                                binning="resident", max_splats_per_tile=32,
-                                tile_h=32), rng)
-
-    def test_flat(self, rng):
-        from gs2d_tpu.ops.render_pallas_flat import tune_flat_config
+        """The kernel at a 16x16 tile, the production tile shape."""
+        from gs2d_tpu.ops.tiles_flat import tune_flat_config
         from gs2d_tpu.params import init_params
 
         cfg = SplatConfig(width=64, height=48, n_splats=32, binning="flat",
-                          flat_chunk=32, tile_h=32)
+                          interpret=True, tile_h=16, tile_w=16)
+        cfg = tune_flat_config(init_params(cfg), cfg)
+        self._check(cfg, rng)
+
+    def test_flat(self, rng):
+        from gs2d_tpu.ops.tiles_flat import tune_flat_config
+        from gs2d_tpu.params import init_params
+
+        cfg = SplatConfig(width=64, height=48, n_splats=32, binning="flat",
+                          interpret=True, tile_h=32)
         cfg = tune_flat_config(init_params(cfg), cfg)
         self._check(cfg, rng)
 
@@ -184,10 +189,10 @@ class TestSsimSharded:
         self._run({"data": 1, "tile": 2, "splat": 2}, "scan")
 
     def test_pallas_mesh(self):
-        self._run({"data": 1, "tile": 2, "splat": 2}, "pallas")
+        self._run({"data": 1, "tile": 2, "splat": 2}, "tiles")
 
     def test_pallas_tile_only(self):
-        self._run({"data": 1, "tile": 4, "splat": 1}, "pallas")
+        self._run({"data": 1, "tile": 4, "splat": 1}, "tiles")
 
     def test_scanned_sharded_fitter_ssim(self):
         """The on-device scanned sharded fitter with the mixed objective
@@ -203,9 +208,9 @@ class TestSsimSharded:
         ref = jnp.asarray(synthetic_target(32, 64))
         mesh = make_mesh(data=1, tile=2, splat=2)
         want, _ = fit_sharded(ref[None], cfg, mesh, iterations=3,
-                              log_fn=None, renderer="pallas",
+                              log_fn=None, renderer="tiles",
                               ssim_lambda=0.2)
-        fit_k, sh = make_fit_scan_sharded(cfg, mesh, renderer="pallas",
+        fit_k, sh = make_fit_scan_sharded(cfg, mesh, renderer="tiles",
                                           ssim_lambda=0.2)
         import jax as _jax
         state = _jax.device_put(init_batched_state(cfg, 1), sh["state"])

@@ -1,4 +1,5 @@
-"""Tile binning invariants and Pallas-path parity (interpret mode on CPU)."""
+"""Tile binning invariants and tile-path parity: the plain XLA path and
+the GPU kernel (interpret mode on CPU) against the scan renderer."""
 
 import jax
 import jax.numpy as jnp
@@ -6,8 +7,10 @@ import numpy as np
 import pytest
 
 from gs2d_tpu.config import SplatConfig
-from gs2d_tpu.ops import render_pallas as rp
+from gs2d_tpu.ops import render_gpu as rg
+from gs2d_tpu.ops import render_tiles as rp
 from gs2d_tpu.ops import tiles as tl
+from gs2d_tpu.ops import tiles_flat as tlf
 from gs2d_tpu.ops.render_jax import render_backward, render_forward
 from tests.helpers import random_splats, to_params
 
@@ -15,7 +18,7 @@ H, W = 48, 64
 
 
 def make_case(rng, n, **kw):
-    cfg = SplatConfig(width=W, height=H, n_splats=n)
+    cfg = SplatConfig(width=W, height=H, n_splats=n, interpret=True)
     s = random_splats(rng, n, W, H, **kw)
     return cfg, s, to_params(s)
 
@@ -88,50 +91,67 @@ class TestBinning:
         assert int(b.n_dropped) == 0
 
 
+def forward_of(layout, p, cfg, k):
+    """(color, T) cropped to the image, from the plain path or the kernel."""
+    if layout == "dense":
+        return rp.forward_tiled(tl.bin_splats(p, cfg, k), cfg)
+    b = tlf.bin_splats_flat(p, cfg, max(1, tlf.tune_flat_capacity(p, cfg)))
+    C, T = rg.forward_flat(b, cfg)
+    return C[:H, :W], T[:H, :W]
+
+
 class TestPallasForward:
+    @pytest.mark.parametrize("layout", ["dense", "flat"])
     @pytest.mark.parametrize("n", [1, 64, 192])
-    def test_matches_scan_renderer(self, rng, n):
+    def test_matches_scan_renderer(self, rng, n, layout):
         cfg, s, p = make_case(rng, n)
-        b = tl.bin_splats(p, cfg, max(n, 8))
         C1, T1 = render_forward(p, cfg)
-        C2, T2 = rp.forward_tiled(b, cfg)
+        C2, T2 = forward_of(layout, p, cfg, max(n, 8))
         np.testing.assert_allclose(np.asarray(C2), np.asarray(C1), atol=3e-7)
         np.testing.assert_allclose(np.asarray(T2), np.asarray(T1), atol=3e-7)
 
-    def test_saturated(self, rng):
+    @pytest.mark.parametrize("layout", ["dense", "flat"])
+    def test_saturated(self, rng, layout):
         cfg, s, p = make_case(rng, 64, opacity_range=(0.95, 1.0))
         s.pos[:] = np.float32([W / 2, H / 2]) + np.asarray(
             rng.normal(0, 2.0, (64, 2)), np.float32)
         p = to_params(s)
-        b = tl.bin_splats(p, cfg, 64)
         C1, T1 = render_forward(p, cfg)
-        C2, T2 = rp.forward_tiled(b, cfg)
+        C2, T2 = forward_of(layout, p, cfg, 64)
         assert (np.asarray(T1) < 1 / 256).any()
         np.testing.assert_allclose(np.asarray(C2), np.asarray(C1), atol=3e-7)
 
 
 class TestPallasBackward:
-    def test_matches_scan_backward(self, rng):
+    @pytest.mark.parametrize("layout", ["dense", "flat"])
+    def test_matches_scan_backward(self, rng, layout):
         cfg, s, p = make_case(rng, 96)
-        b = tl.bin_splats(p, cfg, 96)
-        C, _ = rp.forward_tiled(b, cfg)
+        C, _ = render_forward(p, cfg)
         ref = jnp.asarray(rng.uniform(0, 1, (H, W, 3)).astype(np.float32))
         gC = C - ref
         g1 = render_backward(p, C, gC, cfg)
-        g2 = rp.backward_tiled(b, C, gC, 96, cfg, p)
+        if layout == "dense":
+            g2 = rp.backward_tiled(tl.bin_splats(p, cfg, 96), C, gC, 96,
+                                   cfg, p)
+        else:
+            b = tlf.bin_splats_flat(p, cfg, tlf.tune_flat_capacity(p, cfg))
+            pad = lambda x: jnp.zeros(
+                (cfg.padded_height, cfg.padded_width, 3)).at[:H, :W].set(x)
+            g2 = rg.backward_flat(b, pad(C), pad(gC), 96, cfg, p)
         for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
             a, c = np.asarray(getattr(g1, f)), np.asarray(getattr(g2, f))
             atol = 1e-4 * max(1.0, np.abs(a).max())
             np.testing.assert_allclose(c, a, atol=atol, err_msg=f)
 
     def test_custom_vjp_trains(self, rng):
-        """End-to-end: the Pallas render plugs into the train loop."""
+        """End-to-end: the production render plugs into the train loop."""
         from gs2d_tpu.io.image import synthetic_target
         from gs2d_tpu.train.loop import fit
 
         cfg = SplatConfig(width=W, height=H, n_splats=64)
         ref = jnp.asarray(synthetic_target(H, W))
-        state, hist = fit(ref, cfg, iterations=30, render_fn=rp.render,
+        state, hist = fit(ref, cfg, iterations=30,
+                          render_fn=rp.production_render,
                           log_every=10, log_fn=None)
         assert hist[-1]["mse"] < hist[0]["mse"] * 0.8
 
@@ -150,62 +170,48 @@ class TestSegmentedSortFallback:
 
 
 class TestBinningPolicy:
-    """resolve_binning: the measured auto policy (BASELINE.md crossover)."""
+    """backend.resolve_binning: the layout follows the platform."""
 
     def test_auto_policy(self):
-        from gs2d_tpu.config import SplatConfig
-        from gs2d_tpu.ops.render_pallas_flat import resolve_binning
+        from gs2d_tpu import backend
 
-        mk = lambda n, **kw: SplatConfig(width=535, height=426, n_splats=n,
-                                         tile_h=32, **kw)
-        assert resolve_binning(mk(1024)) == "resident"
-        assert resolve_binning(mk(4096)) == "resident"
-        assert resolve_binning(mk(8192)) == "flat"
-        assert resolve_binning(mk(1024, binning="dense")) == "dense"
-        assert resolve_binning(mk(1024, binning="flat")) == "flat"
-        # Big image: the ids matrix overflows the SMEM budget -> not resident.
-        big = SplatConfig(width=3840, height=2160, n_splats=4096, tile_h=32)
-        assert resolve_binning(big) != "resident"
+        mk = lambda **kw: SplatConfig(width=535, height=426, n_splats=1024,
+                                      **kw)
+        # The test run is on the CPU: auto picks the plain path's layout.
+        assert backend.platform() == "cpu"
+        assert backend.resolve_binning(mk()) == "dense"
+        assert backend.resolve_binning(mk(binning="dense")) == "dense"
+        assert backend.resolve_binning(mk(binning="flat")) == "flat"
 
     def test_unknown_binning_raises(self):
-        import pytest
+        from gs2d_tpu import backend
 
-        from gs2d_tpu.config import SplatConfig
-        from gs2d_tpu.ops.render_pallas_flat import resolve_binning
-
-        with pytest.raises(ValueError):
-            resolve_binning(SplatConfig(binning="bogus"))
+        for bad in ("bogus", "resident", "window"):
+            with pytest.raises(ValueError):
+                backend.resolve_binning(SplatConfig(binning=bad))
 
 
-class TestTileHeightPolicy:
-    """Depth-aware tile-height policy (measured, BASELINE.md)."""
+class TestKernelGate:
+    """The kernel runs compiled only on a GPU; interpret mode only when
+    the config asks for it."""
 
-    def test_depth_aware(self):
-        from gs2d_tpu.config import SplatConfig
-        from gs2d_tpu.ops.tiles import (DEEPER_TILE_H, PRODUCTION_TILE_H,
-                                        tune_tile_height)
-        from gs2d_tpu.params import init_params
+    def test_flat_without_gpu_raises(self, rng):
+        from gs2d_tpu import backend
 
-        deep = SplatConfig(width=1920, height=1080, n_splats=1048576)
-        assert tune_tile_height(
-            deep, init_params(deep)).tile_h == DEEPER_TILE_H
-        shallow = SplatConfig(width=268, height=213, n_splats=1024)
-        assert tune_tile_height(
-            shallow, init_params(shallow)).tile_h == PRODUCTION_TILE_H
-        assert tune_tile_height(deep).tile_h == PRODUCTION_TILE_H
+        cfg, s, p = make_case(rng, 8)
+        cfg = cfg.replace(interpret=False)
+        with pytest.raises(ValueError, match="needs a GPU"):
+            backend.check_kernel(cfg)
+        b = tlf.bin_splats_flat(p, cfg, 64)
+        with pytest.raises(ValueError, match="needs a GPU"):
+            rg.forward_flat(b, cfg)
 
-    def test_span_gate(self):
-        """Pixel-scale populations (mean vertical span ~1 tile) never
-        escalate, no matter how deep: taller tiles cannot shrink M there
-        (measured LOSS 1.33x at 1080p/1M px-init, see tune_tile_height)."""
-        from gs2d_tpu.config import SplatConfig
-        from gs2d_tpu.ops.tiles import PRODUCTION_TILE_H, tune_tile_height
-        from gs2d_tpu.params import init_params
+    def test_interpret_allowed(self, rng):
+        from gs2d_tpu import backend
 
-        px = SplatConfig(width=1920, height=1080, n_splats=1048576,
-                         init_scale_min=1.0, init_scale_max=2.0)
-        assert tune_tile_height(px, init_params(px)).tile_h \
-            == PRODUCTION_TILE_H
+        cfg, s, p = make_case(rng, 8)
+        backend.check_kernel(cfg)  # interpret=True: no error
+        assert "platform=cpu" in backend.describe()
 
 
 class TestTuneRebinMargin:
